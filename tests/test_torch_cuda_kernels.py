@@ -1,0 +1,100 @@
+"""The port's hand-written CUDA kernels against their plain PyTorch twins.
+
+Every test here needs an NVIDIA GPU with nvcc, is marked `cuda`, and skips
+without a card. The file imports neither JAX nor the JAX package, so it runs
+on a GPU machine that has PyTorch only; `--noconftest` keeps pytest from
+loading tests/conftest.py, which imports JAX:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+
+Tolerances are those of tests/test_pallas_sector.py: the kernels and the
+twins do the same float32 arithmetic in another order.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from optimalcontrolmps_torch import flagship
+from optimalcontrolmps_torch.ops import sector_chain as sc
+from optimalcontrolmps_torch.seeds import adiabatic_seed
+
+FWD_TOL = 2e-5   # tests/test_pallas_sector.py:51
+BWD_TOL = 3e-5   # times max(max|du|, 1), tests/test_pallas_sector.py:75
+N_T = 201        # the flagship's T=2.0, dt=0.01
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def prob(dev):
+    return flagship.make_problem(dev)
+
+
+def _controls(B, seed):
+    rng = np.random.default_rng(seed)
+    return (adiabatic_seed(2.5, 50.0, N_T)[None]
+            + rng.normal(0.0, 0.3, (B, N_T))).astype(np.float32)
+
+
+# B=250 leaves a ragged last tile of 26 rows; 4096 is the flagship batch
+@pytest.mark.parametrize("B", [250, 4096])
+def test_kernels_match_twins(dev, prob, B):
+    consts = sc.chain_constants(prob.st, prob.psi_i)
+    u = torch.as_tensor(_controls(B, 0), device=dev)
+    dt = prob.st.dt
+    ref = sc.chain_final_scan(dt, *consts[:3], u, *consts[3:])
+    out = sc.chain_fwd(dt, *consts[:3], u, *consts[3:])
+    torch.cuda.synchronize()
+    for a, b in zip(out, ref):
+        assert float(torch.max(torch.abs(a - b))) <= FWD_TOL
+
+    rng = np.random.default_rng(1)
+    gT = [torch.as_tensor(rng.normal(size=(B, 128)).astype(np.float32),
+                          device=dev) for _ in range(2)]
+    du = sc.chain_bwd(dt, *consts[:3], u, *ref, *gT)
+    du_ref = sc.scan_bwd(dt, *consts[:3], u, *ref, *gT)
+    torch.cuda.synchronize()
+    scale = max(float(torch.max(torch.abs(du_ref))), 1.0)
+    assert float(torch.max(torch.abs(du - du_ref))) <= BWD_TOL * scale
+
+
+def test_chain_final_and_gradient_match_cpu(dev, prob):
+    """chain_final with its autograd.Function on the card (both kernels)
+    against the same call on the CPU (both twins), and one launch of each
+    kernel per forward and backward."""
+    prob_cpu = flagship.make_problem("cpu")
+    u_np = _controls(8, 2)
+    outs = []
+    sc.reset_counts()
+    for p, device in ((prob, dev), (prob_cpu, "cpu")):
+        u = torch.as_tensor(u_np, device=device).requires_grad_(True)
+        psiT = sc.chain_final(p.st, u, p.psi_i)
+        ov = psiT @ p.psi_f.conj()
+        J = torch.sum(0.5 * (1.0 - (ov * ov.conj()).real))
+        (g,) = torch.autograd.grad(J, u)
+        outs.append((psiT.detach().cpu(), g.cpu()))
+    assert (sc.fwd_launches, sc.bwd_launches) == (1, 1)
+    (psi_k, g_k), (psi_p, g_p) = outs
+    assert float(torch.max(torch.abs(psi_k - psi_p))) <= FWD_TOL
+    scale = max(float(torch.max(torch.abs(g_p))), 1.0)
+    assert float(torch.max(torch.abs(g_k - g_p))) <= BWD_TOL * scale
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(dev, prob):
+    Wr, Wi, nn1, h0r, h0i = sc.chain_constants(prob.st, prob.psi_i)
+    u = torch.as_tensor(_controls(4, 3), device=dev)
+    dt = prob.st.dt
+    with pytest.raises(TypeError, match="float32"):
+        sc.chain_fwd(dt, Wr, Wi, nn1, u.double(), h0r, h0i)
+    with pytest.raises(ValueError, match="contiguous"):
+        sc.chain_fwd(dt, Wr.T, Wi, nn1, u, h0r, h0i)
+    with pytest.raises(ValueError, match="shape"):
+        sc.chain_fwd(dt, Wr[:64, :64].contiguous(), Wi, nn1, u, h0r, h0i)

@@ -2,30 +2,72 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written Hopper kernels of optimalcontrolmps_torch from
-csrc/, holds each against its plain PyTorch twin at the flagship shapes
-(B=4096, n=128, N_t=201), then runs the flagship multistart solve
-(`flagship.solve_flagship`) on the card and checks its result. Exits non-zero
-without a CUDA device or on any failed check; never falls back to the CPU.
-Env: SMOKE_BATCH (default 4096) sets the solve's batch.
+Builds the hand-written Hopper kernels of optimalcontrolmps_torch from csrc/
+(one nvcc per source, started together) and then, on the card:
 
-Output: the card's name and power limit, the build, one line per kernel
-check, one JSON line with the solve's result, one {"kernels": [...]} JSON
-line, and last {"ok": true, "device": {...}}.
+1. holds each kernel against its plain PyTorch twin at the shapes its main
+   path gives it: the sector chain (fwd, bwd) at B=SMOKE_BATCH, N_t=201;
+   the bond theta at (LANES, chi=25, p=5) in complex128 and complex64
+   and at the reference-scale bond (8, chi=128, p=8) in complex64;
+2. checks the MPS engine's CostTests golden (L=5, d=5, chi=40, T=0.1, the
+   linear ramp 2 -> 50: cost 0.375995 to 1e-5);
+3. runs `engine.cost_and_gradient` on the shipped T=2.0 problem on the
+   card and on the CPU in complex128 and compares them: at c=0 and at a
+   random c with the eigh split, and at c=0 with the svd split;
+4. drives the sector main path, `flagship.solve_flagship`;
+5. drives the MPS main path, `drivers.optimize_ramp.run`, on
+   examples/InputFile_BHcontrolT2.0 with engine = mps, multistart =
+   LANES and maxIter = MPS_MAX_ITER (only those keys change).
+
+Each main path is driven with every launch counter set to 0 just before it
+and read just after. Exits non-zero without a CUDA device or on any failed
+check; never falls back to the CPU. Env: SMOKE_BATCH (default 4096) sets the
+sector solve's batch.
+
+Output: the card's name and power limit, the build, one line per check and
+phase (with its wall time), one JSON line per main path, one
+{"kernels": [...]} JSON line, and last {"ok": true, "device": {...}}.
 """
 
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-KERNEL_SOURCE = "optimalcontrolmps_torch/csrc/sector_chain.cu"
+SECTOR_SOURCE = "optimalcontrolmps_torch/csrc/sector_chain.cu"
+BOND_SOURCE = "optimalcontrolmps_torch/csrc/bond_theta.cu"
+EXAMPLE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "examples", "InputFile_BHcontrolT2.0")
 FWD_TOL = 2e-5          # tests/test_pallas_sector.py:51
 BWD_TOL = 3e-5          # times max(max|du|, 1), tests/test_pallas_sector.py:75
+# max|kernel - twin| / max|twin|: tests/test_pallas_kernels.py:22 for
+# complex64; complex128 sums the same products in another order
+THETA_TOL = {torch.complex64: 1e-5, torch.complex128: 1e-12}
+GOLDEN, GOLDEN_TOL = 0.375995, 1e-5     # tests/test_cost_golden.py:66
+# card vs CPU in complex128: |dJ| absolute, max|dg| / max|g|. The split by
+# eigh of the density matrix resolves Schmidt values only down to
+# sqrt(eps) ~ 1.5e-8 of the largest, and cuSOLVER and LAPACK resolve the
+# smallest ones (and the padded null space, a gauge) differently, so the
+# states differ at that level after 2 x 200 steps; the cost is quadratic in
+# them and agrees far better. The svd split resolves them to eps, so its
+# reading is the witness for that cause. A real fault (the backward gate
+# read unconjugated) showed as 0.7.
+CARD_CPU_COST_TOL = 1e-12
+CARD_CPU_GRAD_TOL = 1e-8
+MPS_MAX_ITER = 3
+LANES = 4               # the MPS driver's multistart lanes
+NPART = 5
+
+# published H100 SXM peaks (NVIDIA data sheet): memory; fp32 outside the
+# tensor cores; fp64 through the tensor cores (DMMA), the card's peak for the
+# type (34 TFLOP/s on the CUDA cores, which these kernels use)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 
 
 def fail(msg: str) -> None:
@@ -48,42 +90,46 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is False; this script needs a GPU")
+def bound(ops: float, nbytes: float, real) -> tuple:
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rate of their type."""
+    t_ops = ops / PEAK_FLOPS[real] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
 
-    from optimalcontrolmps_torch import flagship
-    from optimalcontrolmps_torch.ops import _build
+
+class Phases:
+    """Wall time of each phase, printed as it ends."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def done(self, name: str) -> None:
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        print(f"[phase] {name}: {now - self.t:.2f} s", flush=True)
+        self.t = now
+
+
+def reset_all_counts() -> None:
+    from optimalcontrolmps_torch.ops import bond_theta as bt
     from optimalcontrolmps_torch.ops import sector_chain as sc
-    from optimalcontrolmps_torch.precision import enforce_matmul_precision
+    sc.reset_counts()
+    bt.reset_counts()
+
+
+def check_sector_chain(batch: int) -> dict:
+    """Both sector-chain kernels against their twins at (batch, N_t=201)."""
+    from optimalcontrolmps_torch import flagship
+    from optimalcontrolmps_torch.ops import sector_chain as sc
     from optimalcontrolmps_torch.seeds import adiabatic_seed
 
-    enforce_matmul_precision()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
-    print(smi)
-    kind = torch.cuda.get_device_name(0)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {kind}")
-
-    # -- build -------------------------------------------------------------
-    t0 = time.perf_counter()
-    _build.load_sector_chain()
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc "
-          f"{_build.build_log.get('seconds', 0.0):.2f} s) "
-          f"{_build.build_log.get('cmd', 'cached library')}")
-    for line in _build.build_log.get("ptxas", "").splitlines():
-        if "registers" in line or "Compiling" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
-
-    # -- kernels against their twins at the flagship shapes ------------------
     dev = torch.device("cuda")
     prob = flagship.make_problem(dev)
     st = prob.st
     Wr, Wi, nn1, h0r, h0i = sc.chain_constants(st, prob.psi_i)
-    B, n_t = 4096, int(round(flagship.T / flagship.DT)) + 1
+    B, n_t, n = batch, int(round(flagship.T / flagship.DT)) + 1, Wr.shape[0]
     rng = np.random.default_rng(0)
     u_np = (adiabatic_seed(2.5, 50.0, n_t)[None]
             + rng.normal(0.0, 0.3, (B, n_t))).astype(np.float32)
@@ -95,7 +141,7 @@ def main() -> None:
     torch.cuda.synchronize()
     fwd_err = max(float(torch.max(torch.abs(a - b)))
                   for a, b in zip(hT_k, hT_p))
-    gTr, gTi = (torch.as_tensor(rng.normal(size=(B, 128)).astype(np.float32),
+    gTr, gTi = (torch.as_tensor(rng.normal(size=(B, n)).astype(np.float32),
                                 device=dev) for _ in range(2))
     du_k = sc.chain_bwd(dt, Wr, Wi, nn1, u, *hT_p, gTr, gTi)
     du_p = sc.scan_bwd(dt, Wr, Wi, nn1, u, *hT_p, gTr, gTi)
@@ -110,48 +156,298 @@ def main() -> None:
         lambda: sc.chain_bwd(dt, Wr, Wi, nn1, u, *hT_p, gTr, gTi), 20)
     bwd_plain_ms = cuda_ms(
         lambda: sc.scan_bwd(dt, Wr, Wi, nn1, u, *hT_p, gTr, gTi), 5)
-    print(f"fwd kernel vs twin (B={B}, N_t={n_t}): max|dh| = {fwd_err:.3e} "
-          f"(limit {FWD_TOL:.0e}); kernel {fwd_ms:.4f} ms, "
+    print(f"sector fwd kernel vs twin (B={B}, N_t={n_t}): max|dh| = "
+          f"{fwd_err:.3e} (limit {FWD_TOL:.0e}); kernel {fwd_ms:.4f} ms, "
           f"twin {fwd_plain_ms:.4f} ms")
-    print(f"bwd kernel vs twin (B={B}, N_t={n_t}): max|ddu| = {bwd_err:.3e} "
-          f"(limit {BWD_TOL:.0e} x {bwd_scale:.3e}); kernel {bwd_ms:.4f} ms, "
-          f"twin {bwd_plain_ms:.4f} ms")
+    print(f"sector bwd kernel vs twin (B={B}, N_t={n_t}): max|ddu| = "
+          f"{bwd_err:.3e} (limit {BWD_TOL:.0e} x {bwd_scale:.3e}); kernel "
+          f"{bwd_ms:.4f} ms, twin {bwd_plain_ms:.4f} ms")
     if not fwd_err <= FWD_TOL:
-        fail(f"fwd kernel disagrees with its twin: {fwd_err}")
+        fail(f"sector fwd kernel disagrees with its twin: {fwd_err}")
     if not bwd_err <= BWD_TOL * bwd_scale:
-        fail(f"bwd kernel disagrees with its twin: {bwd_err}")
+        fail(f"sector bwd kernel disagrees with its twin: {bwd_err}")
 
-    # -- the main path -----------------------------------------------------
-    batch = int(os.environ.get("SMOKE_BATCH", "4096"))
-    sc.reset_counts()
-    out = flagship.solve_flagship(B=batch, device=dev)
+    # per step and row: four real (n x n) products forward; the reversible
+    # backward rebuilds h and carries g, eight. Bytes: inputs once, outputs
+    # once, float32.
+    steps, f32 = n_t - 1, 4
+    fwd_bound = bound(2 * 4 * n * n * steps * B,
+                      f32 * (2 * n * n + 3 * n + B * n_t + 2 * B * n),
+                      torch.float32)
+    bwd_bound = bound(2 * 8 * n * n * steps * B,
+                      f32 * (2 * n * n + n + B * n_t + 4 * B * n
+                             + B * n_t), torch.float32)
+    base = {"route": "cuda", "source": SECTOR_SOURCE, "library_ms": None}
+    return {
+        "sector_chain_fwd": {
+            **base, "name": "sector_chain_fwd",
+            "replaces": "optimalcontrolmps_tpu/ops/pallas_sector.py:133",
+            "max_abs_err": fwd_err, "ms": fwd_ms, "plain_ms": fwd_plain_ms,
+            "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1]},
+        "sector_chain_bwd": {
+            **base, "name": "sector_chain_bwd",
+            "replaces": "optimalcontrolmps_tpu/ops/pallas_sector.py:159",
+            "max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+            "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1]},
+    }
+
+
+def check_bond_theta(lanes: int) -> dict:
+    """The bond-theta kernel against its twin; numpy seed 0 inputs. The
+    first shape is the MPS main path's (lanes, chi=25, p=5, complex128)."""
+    from optimalcontrolmps_torch.ops import bond_theta as bt
+
+    checks = []
+    for B, chi, p, dtype in ((lanes, 25, 5, torch.complex128),
+                             (lanes, 25, 5, torch.complex64),
+                             (8, 128, 8, torch.complex64)):
+        rng = np.random.default_rng(0)
+
+        def mk(*s):
+            return torch.as_tensor(rng.standard_normal(s)
+                                   + 1j * rng.standard_normal(s),
+                                   dtype=dtype, device="cuda")
+        Ai, Aj, G = mk(B, chi, p, chi), mk(B, chi, p, chi), mk(p * p, p * p)
+        out = bt.bond_theta(Ai, Aj, G)
+        ref = bt.bond_theta_reference(Ai, Aj, G)
+        G4 = G.reshape(p, p, p, p)
+
+        def library():
+            return torch.einsum('PQpq,bapc,bcqd->baPQd', G4, Ai, Aj)
+        lib = library().reshape(B, chi * p, p * chi)
+        torch.cuda.synchronize()
+        abs_err = float(torch.max(torch.abs(out - ref)))
+        rel = abs_err / float(torch.max(torch.abs(ref)))
+        lib_rel = float(torch.max(torch.abs(lib - ref))
+                        / torch.max(torch.abs(ref)))
+        k_ms = cuda_ms(lambda: bt.bond_theta(Ai, Aj, G), 50)
+        p_ms = cuda_ms(lambda: bt.bond_theta_reference(Ai, Aj, G), 50)
+        l_ms = cuda_ms(library, 50)
+        real = torch.float64 if dtype == torch.complex128 else torch.float32
+        csize = 16 if dtype == torch.complex128 else 8
+        ops = 8 * (chi ** 3 * p ** 2 + p ** 4 * chi ** 2) * B
+        nbytes = csize * (B * (2 * chi * chi * p + chi * chi * p * p)
+                          + p ** 4)
+        b_ms, b_by = bound(ops, nbytes, real)
+        print(f"bond_theta kernel vs twin (B={B}, chi={chi}, p={p}, "
+              f"{str(dtype).split('.')[-1]}): max|d|/max|ref| = {rel:.3e} "
+              f"(limit {THETA_TOL[dtype]:.0e}); kernel {k_ms:.4f} ms, twin "
+              f"{p_ms:.4f} ms, einsum {l_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by})")
+        if not rel < THETA_TOL[dtype]:
+            fail(f"bond_theta disagrees with its twin at B={B}, chi={chi}, "
+                 f"p={p}, {dtype}: {rel}")
+        if not lib_rel < THETA_TOL[dtype]:
+            fail(f"the einsum yardstick computes another function: {lib_rel}")
+        checks.append({"B": B, "chi": chi, "p": p,
+                       "dtype": str(dtype).split(".")[-1],
+                       "max_abs_err": abs_err, "rel_err": rel, "ms": k_ms,
+                       "plain_ms": p_ms, "library_ms": l_ms,
+                       "bound_ms": b_ms, "bound_by": b_by})
+    main = checks[0]
+    return {"bond_theta": {
+        "name": "bond_theta", "route": "cuda", "source": BOND_SOURCE,
+        "replaces": "optimalcontrolmps_tpu/ops/pallas_kernels.py:30",
+        "max_abs_err": max(c["max_abs_err"] for c in checks),
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"], "checks": checks}}
+
+
+def check_golden() -> float:
+    """CostTests physics (tests/test_cost_golden.py) on the card."""
+    from optimalcontrolmps_torch import engine, groundstate, seeds, tebd
+
+    dt, T, chi = 0.01, 0.1, 40
+    n = int(round(T / dt)) + 1
+    st = tebd.make_stepper(5, 5, 1.0, dt, chi, device="cuda")
+    psi_i = groundstate.initialize_state(5, 5, 5, 1.0, 2.0, chi,
+                                         device="cuda")
+    psi_f = groundstate.initialize_state(5, 5, 5, 1.0, 50.0, chi,
+                                         device="cuda")
+    u = torch.as_tensor(seeds.linspace(2.0, 50.0, n), device="cuda")
+    J = float(engine.cost(st, psi_i, psi_f, u, 0.0))
+    print(f"MPS golden on the card: cost {J:.12f} (want {GOLDEN} to "
+          f"{GOLDEN_TOL:.0e})")
+    if not abs(J - GOLDEN) < GOLDEN_TOL:
+        fail(f"MPS golden: {J} != {GOLDEN}")
+    return J
+
+
+def example_config(**changes):
+    from optimalcontrolmps_torch import config
+    cfg = config.parse_input_file(EXAMPLE)
+    cfg.values.update({k: str(v) for k, v in changes.items()})
+    return cfg
+
+
+def check_card_vs_cpu() -> dict:
+    """engine.cost_and_gradient on the shipped problem (L=5, d=4, chi=25,
+    N_t=201, complex128), on the card and on the CPU: at c=0 and at a random
+    c (numpy seed 0, sigma 0.5, as a multistart lane) with the driver's eigh
+    split, and at c=0 with the svd split."""
+    from optimalcontrolmps_torch import engine
+    from optimalcontrolmps_torch.drivers import common
+
+    c_rand = np.random.default_rng(0).normal(0.0, 0.5, 10)
+    readings = {}
+    for label, method, c in (("c=0 eigh", "eigh", np.zeros(10)),
+                             ("random c eigh", "eigh", c_rand),
+                             ("c=0 svd", "svd", np.zeros(10))):
+        cfg = example_config(engine="mps", truncMethod=method)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            p = common.build_problem(cfg, engine="mps", device=dev)
+            u = p.basis.convert_control(torch.as_tensor(c, device=dev))
+            t0 = time.perf_counter()
+            J, g = engine.cost_and_gradient(p.stepper, p.psi_i, p.psi_f, u,
+                                            p.gamma)
+            res[dev] = (float(J), g.cpu(), time.perf_counter() - t0)
+        (Jc, gc, tc), (Jh, gh, th) = res["cuda"], res["cpu"]
+        g_rel = float(torch.max(torch.abs(gc - gh))
+                      / torch.max(torch.abs(gh)))
+        print(f"cost_and_gradient at {label}, card vs CPU (complex128): J "
+              f"{Jc:.12f} vs {Jh:.12f} (|dJ| {abs(Jc - Jh):.2e}, limit "
+              f"{CARD_CPU_COST_TOL:.0e}), max|dg|/max|g| {g_rel:.2e} (limit "
+              f"{CARD_CPU_GRAD_TOL:.0e}); card {tc:.2f} s, CPU {th:.2f} s")
+        if not (abs(Jc - Jh) < CARD_CPU_COST_TOL
+                and g_rel < CARD_CPU_GRAD_TOL):
+            fail(f"card and CPU disagree at {label}: dJ {abs(Jc - Jh)}, "
+                 f"dg {g_rel}")
+        readings[label] = {"J": Jc, "dJ": abs(Jc - Jh), "g_rel": g_rel,
+                           "card_s": tc, "cpu_s": th}
+    print(json.dumps({"card_vs_cpu": readings}))
+    return readings
+
+
+def drive_sector(batch: int, kind: str, smi: str) -> dict:
+    from optimalcontrolmps_torch import flagship
+    from optimalcontrolmps_torch.ops import sector_chain as sc
+
+    reset_all_counts()
+    out = flagship.solve_flagship(B=batch, device=torch.device("cuda"))
     launches = {"fwd": sc.fwd_launches, "bwd": sc.bwd_launches}
     out["solves_per_s"] = batch / out["chip_phase_s"]
     out["launches"] = launches
     out["device"] = kind
     out["power"] = smi
     print(json.dumps(out))
-
     if not (launches["fwd"] > 0 and launches["bwd"] > 0):
-        fail(f"the solve did not run both kernels: {launches}")
+        fail(f"the sector solve did not run both kernels: {launches}")
     if not (out["all_costs_finite"] and np.isfinite(out["best_cost_f64"])):
-        fail("non-finite costs")
+        fail("sector solve: non-finite costs")
     if not (out["converged"] and out["grad_norm_f64"] < 1e-8):
         fail(f"polish did not converge: |g| = {out['grad_norm_f64']}")
     if not (out["best_cost_f64"] < 6e-3 and out["best_infidelity"] < 6e-3):
         fail(f"J* = {out['best_cost_f64']}, "
              f"infidelity = {out['best_infidelity']}")
+    return launches
 
-    print(json.dumps({"kernels": [
-        {"name": "sector_chain_fwd", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": "optimalcontrolmps_tpu/ops/pallas_sector.py:133",
-         "launches": launches["fwd"], "max_abs_err": fwd_err,
-         "ms": fwd_ms, "plain_ms": fwd_plain_ms},
-        {"name": "sector_chain_bwd", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": "optimalcontrolmps_tpu/ops/pallas_sector.py:159",
-         "launches": launches["bwd"], "max_abs_err": bwd_err,
-         "ms": bwd_ms, "plain_ms": bwd_plain_ms},
-    ]}))
+
+def drive_mps(lanes: int) -> int:
+    """optimize_ramp.run on the shipped T=2.0 config, engine = mps."""
+    from optimalcontrolmps_torch import config, engine
+    from optimalcontrolmps_torch.drivers import common, optimize_ramp
+    from optimalcontrolmps_torch.ops import bond_theta as bt
+    from optimalcontrolmps_torch.optimize.penalty import bound_penalty
+
+    cfg = example_config(engine="mps", multistart=lanes,
+                         maxIter=MPS_MAX_ITER)
+    # the objective at c=0, which lane 0 starts from
+    p = common.build_problem(cfg, engine="mps")
+    u0 = p.basis.convert_control(torch.zeros(p.M, dtype=torch.float64,
+                                             device=p.device))
+    f0 = float(engine.cost(p.stepper, p.psi_i, p.psi_f, u0, p.gamma)
+               + bound_penalty(u0))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "InputFile")
+        config.write_input_file(path, cfg.values)
+        prefix = os.path.join(tmp, "out_")
+        reset_all_counts()
+        t0 = time.perf_counter()
+        out = optimize_ramp.run(path, seed=1, out_prefix=prefix)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = bt.bond_theta_launches
+        files = {f: os.path.exists(prefix + f) for f in (
+            "BHrampInitialFinal.txt", "ExpectationN.txt",
+            "ProgressCache.txt", "checkpoint.json")}
+        expn = (np.loadtxt(prefix + "ExpectationN.txt")
+                if files["ExpectationN.txt"] else np.zeros((0, 6)))
+    costs = out["status"]["batch_costs"]
+    npart_err = float(np.abs(expn[:, 1:].sum(axis=1) - NPART).max()) \
+        if expn.size else float("inf")
+    print(json.dumps({
+        "mps_driver": {"lanes": lanes, "max_iter": MPS_MAX_ITER,
+                       "cost_c0": f0, "batch_costs": costs,
+                       "best": out["status"]["f"],
+                       "iterations": out["status"]["iterations"],
+                       "n_evals": out["status"]["n_evals"],
+                       "infidelity": out["infidelity"],
+                       "bond_theta_launches": launches, "files": files,
+                       "expectation_rows": int(expn.shape[0]),
+                       "npart_max_err": npart_err, "wall_s": wall}}))
+    if not launches > 0:
+        fail("the MPS driver launched no bond_theta kernel")
+    if not all(np.isfinite(costs)):
+        fail(f"MPS driver: non-finite lane costs {costs}")
+    if not min(costs) < f0:
+        fail(f"MPS driver: best cost {min(costs)} not below c=0's {f0}")
+    if not all(files.values()):
+        fail(f"MPS driver: missing output files {files}")
+    if not (expn.shape[0] == p.n_steps and npart_err < 1e-8):
+        fail(f"ExpectationN.txt: {expn.shape[0]} rows, particle number off "
+             f"by {npart_err}")
+    return launches
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False; this script needs a GPU")
+
+    from optimalcontrolmps_torch.ops import _build
+    from optimalcontrolmps_torch.precision import enforce_matmul_precision
+
+    enforce_matmul_precision()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(smi)
+    kind = torch.cuda.get_device_name(0)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {kind}")
+    batch = int(os.environ.get("SMOKE_BATCH", "4096"))
+    phases = Phases()
+
+    _build.build_all()
+    for name, log in _build.build_log.items():
+        print(f"build {name}: nvcc {log['seconds']:.2f} s: {log['cmd']}")
+        for line in log["ptxas"].splitlines():
+            if "registers" in line or "Compiling" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
+    phases.done("build")
+
+    kernels = check_sector_chain(batch)
+    phases.done("sector kernels vs twins")
+    kernels.update(check_bond_theta(LANES))
+    phases.done("bond_theta kernel vs twin")
+    check_golden()
+    phases.done("MPS golden")
+    check_card_vs_cpu()
+    phases.done("card vs CPU")
+
+    sector_launches = drive_sector(batch, kind, smi)
+    phases.done("sector main path (flagship.solve_flagship)")
+    kernels["sector_chain_fwd"]["launches"] = sector_launches["fwd"]
+    kernels["sector_chain_bwd"]["launches"] = sector_launches["bwd"]
+
+    kernels["bond_theta"]["launches"] = drive_mps(LANES)
+    phases.done("MPS main path (optimize_ramp.run, engine = mps)")
+
+    print(json.dumps({"kernels": [kernels[k] for k in (
+        "sector_chain_fwd", "sector_chain_bwd", "bond_theta")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

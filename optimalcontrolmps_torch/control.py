@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from . import seeds
+from .device import resolve_device
 
 # The reference builds the sine basis with a truncated PI; the same constant
 # keeps golden basis/cost vectors within 5e-6.
@@ -63,14 +64,16 @@ def basis_from_numpy(u0, S, f, device) -> ControlBasis:
 
 
 def chopped_sine_basis(u0, tstep: float, T: float, M: int,
-                       dtype=torch.float64, device="cpu") -> ControlBasis:
+                       dtype=torch.float64, device=None) -> ControlBasis:
     """Chopped sine basis with stitched-sigmoid shape function:
 
       f_{i,n} = sin((n+1) * PI * tstep * i / T)
       S = sigmoid(x; k=8, off=1.1) stitched at N/2 with
           sigmoid(x; k=-8, off=98.9) on x = linspace(0, 100, N),
           endpoints forced to 0 (pins u(0), u(T)).
+    device=None means the card.
     """
+    device = resolve_device(device)
     u0 = np.asarray(u0, dtype=np.float64)
     N = u0.shape[0]
     if abs(N - (1 + T / tstep)) >= 1e-5:

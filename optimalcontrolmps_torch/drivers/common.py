@@ -1,0 +1,158 @@
+"""Shared driver setup: config -> physics problem.
+
+Counterpart of optimalcontrolmps_tpu/drivers/common.py (the common preamble
+of the reference's executables): parse the InputFile, build the seed ramp,
+basis, boundary ground states and stepper. J = 1, U_i = 2.5 and U_f = 50
+are fixed as in the reference.
+
+Device: the run is on the card unless the config asks for the CPU with
+`backend = cpu` (or the caller passes `device`). `precision = double`
+(the default) runs complex128 on either; the JAX package's redirect of
+double precision to the CPU was a TPU workaround.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .. import control as controllib
+from .. import groundstate, sector, seeds, tebd
+from ..backends import sector_fits
+from ..config import InputGroup
+from ..device import resolve_device
+
+__all__ = ["ProblemSetup", "build_problem", "config_device",
+           "effective_chi", "print_banner", "time_axis"]
+
+J_HOP = 1.0
+U_INITIAL = 2.5
+U_FINAL = 50.0
+
+
+@dataclasses.dataclass
+class ProblemSetup:
+    cfg: InputGroup
+    L: int
+    npart: int
+    d: int
+    T: float
+    tstep: float
+    n_steps: int
+    M: int
+    gamma: float
+    chi: int
+    threshold: float
+    stepper: object
+    psi_i: torch.Tensor
+    psi_f: torch.Tensor
+    basis: controllib.ControlBasis
+    u0: np.ndarray
+    seed: int
+    dtype: torch.dtype
+    device: torch.device
+    kind: str = "mps"   # "mps" (TEBD engine) or "sector" (fixed-N dense)
+
+
+def config_device(cfg: InputGroup) -> torch.device:
+    """The config's `backend` key: "cpu" asks for the CPU, "cuda"/"gpu"
+    (or no key) for the card, which must exist."""
+    backend = cfg.get_string("backend", "").strip().lower()
+    if backend == "cpu":
+        return torch.device("cpu")
+    if backend in ("", "cuda", "gpu"):
+        return resolve_device(None)
+    raise ValueError(f"backend {backend!r}: the port runs on 'cuda' (the "
+                     f"default) or 'cpu'")
+
+
+def effective_chi(max_bond_dim: int, L: int, p: int) -> int:
+    """The requested maxBondDim capped at p**(L//2), beyond which padding
+    is waste."""
+    return int(min(max_bond_dim, p ** (L // 2)))
+
+
+def build_problem(cfg: InputGroup, seed: int = 1, dtype=None, u0=None,
+                  engine: str = "mps", device=None) -> ProblemSetup:
+    """engine: "mps" (the reference's snake TEBD), "sector" (fixed-N dense
+    engine) or "auto" (sector when it fits and the MPS path would be
+    truncation-free, else mps). device=None: the config's `backend`."""
+    device = config_device(cfg) if device is None else torch.device(device)
+    tstep = cfg.get_real("tstep", 1e-2)
+    T = cfg.get_real("T")
+    L = cfg.get_int("N")
+    npart = cfg.get_int("Npart")
+    d = cfg.get_int("d")
+    M = cfg.get_int("M", 1)
+    gamma = cfg.get_real("gamma", 0.0)
+    max_bond = cfg.get_int("maxBondDim", 100)
+    threshold = cfg.get_real("threshold", 1e-7)
+    if dtype is None:
+        dtype = (torch.complex128
+                 if cfg.get_string("precision", "double") == "double"
+                 else torch.complex64)
+    real = torch.float64 if dtype == torch.complex128 else torch.float32
+
+    n_steps = int(T / tstep + 1)
+    chi = effective_chi(max_bond, L, d + 1)
+
+    # the reference seeds srand(123456789*seed) before linsigmoidSeed
+    rng = np.random.default_rng(123456789 * seed)
+    if u0 is None:
+        u0 = seeds.linsigmoid_seed(U_INITIAL, U_FINAL, n_steps, rng=rng)
+    basis = controllib.chopped_sine_basis(u0, tstep, T, M, dtype=real,
+                                          device=device)
+    bound = tebd.exact_rank_bound(L, d + 1)
+    if engine == "auto":
+        engine = ("sector" if sector_fits(L, d, npart) and chi >= bound
+                  else "mps")
+    elif engine == "sector" and chi < bound:
+        print(f"NOTE: engine=sector is exact (chi = sector dim); "
+              f"maxBondDim={max_bond} (effective chi={chi}) is superseded "
+              f"and no truncation occurs.")
+    if engine == "sector":
+        stepper = sector.make_sector_stepper(L, d, npart, J_HOP, tstep,
+                                             dtype=dtype, device=device)
+        psi_i, psi_f = (sector.sector_ground_state(
+            L, d, npart, J_HOP, float(u), dtype=dtype, device=device)
+            for u in (u0[0], u0[-1]))
+    elif engine == "mps":
+        stepper = tebd.make_stepper(
+            L, d, J_HOP, tstep, chi, dtype=dtype, device=device,
+            trunc_method=cfg.get_string("truncMethod", "eigh"))
+        psi_i, psi_f = (groundstate.initialize_state(
+            L, d, npart, J_HOP, float(u), chi, dtype=dtype, device=device)
+            for u in (u0[0], u0[-1]))
+    elif engine == "vidal":
+        raise NotImplementedError("engine = vidal: the Vidal engine is not "
+                                  "ported yet (ROADMAP Queue 1 item 12)")
+    else:
+        raise ValueError(f"unknown engine {engine!r}")
+    return ProblemSetup(cfg=cfg, L=L, npart=npart, d=d, T=T, tstep=tstep,
+                        n_steps=n_steps, M=M, gamma=gamma, chi=chi,
+                        threshold=threshold, stepper=stepper, psi_i=psi_i,
+                        psi_f=psi_f, basis=basis, u0=np.asarray(u0),
+                        seed=seed, dtype=dtype, device=device, kind=engine)
+
+
+def print_banner(p: ProblemSetup, extra=None):
+    """The reference's parameter banner."""
+    print("Performing optimal control of Bose-Hubbard model ... \n")
+    print(" ******* Parameters used ******* ")
+    rows = [
+        ("Number of sites", p.L), ("Number of particles", p.npart),
+        ("Local Fock space dimension", p.d), ("Control duration", p.T),
+        ("Time-step size", p.tstep), ("GROUP dimension", p.M),
+        ("Gamma (regularisation)", p.gamma),
+        ("Bond dimension (static chi)", p.chi),
+        ("Seed", p.seed), ("Device", p.device),
+    ]
+    for k, v in (rows + (list(extra.items()) if extra else [])):
+        print(f"{k:.<33} {v}")
+    print()
+
+
+def time_axis(p: ProblemSetup) -> np.ndarray:
+    return np.arange(p.n_steps) * p.tstep

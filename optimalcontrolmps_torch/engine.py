@@ -1,16 +1,43 @@
-"""Control regularization (exact stencils of the reference).
+"""Cost / gradient / Hessian engine for MPS optimal control.
 
-Counterpart of optimalcontrolmps_tpu/engine.py:123-149. The MPS engine
-itself is not ported yet. `regularization` and `regularization_grad` act on
-the last axis, so a (B, N) control batch works as well as one (N,) control.
+Counterpart of optimalcontrolmps_tpu/engine.py (the reference's
+OptimalControl<BH_tDMRG>). Rollouts are Python loops over `tebd.tebd_step`
+that return stacked states; callers thread the results explicitly.
+
+Batching: where the JAX package vmaps, these functions take a control batch.
+`psi0` and `psi_target` are one MPS each, (L, chi, p, chi); `u` is one
+control (N_t,) or a batch (B, N_t), and every result carries the same
+leading batch axis as `u` (none for one control). All lanes of a batch step
+together, one bond update per bond for the whole batch.
+
+    J(u) = 0.5 (1 - |<psi_target|psi(T)>|^2) + gamma/2 sum_i (u_{i+1}-u_i)^2/dt
+    g_i  = dt Re(<xi_i| dH/du |psi_i> <psi(T)|psi_target> 1j) + reg
+    H    : exact row propagation (every row state stepped as one batch)
+
+The regularization helpers act on the last axis, so they serve a (B, N)
+batch as well as one (N,) control.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["regularization", "regularization_grad", "regularization_hessian"]
+from . import mps as mpslib
+from .device import resolve_device
+from .streaming import rollout_measure
+from .tebd import TEBDStepper, tebd_step
 
+__all__ = [
+    "rollout", "rollout_final", "costate_rollout", "cost", "fidelities",
+    "fidelities_streaming", "gradient", "gradient_lowmem",
+    "cost_and_gradient", "hessian", "regularization", "regularization_grad",
+    "regularization_hessian",
+]
+
+
+# ---------------------------------------------------------------------------
+# regularization (exact stencils of the reference)
+# ---------------------------------------------------------------------------
 
 def regularization(u, gamma, dt):
     d = torch.diff(u, dim=-1)
@@ -27,12 +54,228 @@ def regularization_grad(u, gamma, dt):
     return torch.cat([first[..., None], interior, last[..., None]], dim=-1)
 
 
-def regularization_hessian(n, gamma, dt, dtype=torch.float64, device="cpu"):
+def regularization_hessian(n, gamma, dt, dtype=torch.float64, device=None):
     """Tridiagonal gamma/dt with the four edge couplings and the two edge
-    diagonal entries zero (fixed endpoints)."""
+    diagonal entries zero (fixed endpoints). device=None means the card."""
+    device = resolve_device(device)
     g = gamma / dt
     main = torch.zeros(n, dtype=dtype, device=device)
     main[1:-1] = 2.0 * g
     off = torch.zeros(n - 1, dtype=dtype, device=device)
     off[1:-1] = -g
     return torch.diag(main) + torch.diag(off, 1) + torch.diag(off, -1)
+
+
+# ---------------------------------------------------------------------------
+# batching helpers
+# ---------------------------------------------------------------------------
+
+def _lanes(psi, u):
+    """(one MPS, u (N,) or (B, N)) -> (A (B, L, chi, p, chi), U (B, N),
+    whether u was a batch)."""
+    batched = u.dim() == 2
+    U = u if batched else u[None]
+    A = psi[None].expand(U.shape[0], *psi.shape)
+    return A, U, batched
+
+
+def _out(x, batched):
+    return x if batched else x[0]
+
+
+def _overlap_with(target, A):
+    """<target|A_b> for one MPS `target` against a batch A; (B,)."""
+    return mpslib.overlap(target[None].expand(A.shape[0], *target.shape), A)
+
+
+# ---------------------------------------------------------------------------
+# rollouts
+# ---------------------------------------------------------------------------
+
+def _rollout_lanes(st, A, U):
+    B, n = U.shape
+    traj = torch.empty((B, n, *A.shape[1:]), dtype=A.dtype, device=A.device)
+    traj[:, 0] = A
+    for i in range(n - 1):
+        A = tebd_step(st, A, U[:, i], U[:, i + 1], forward=True)
+        traj[:, i + 1] = A
+    return traj
+
+
+def _costate_lanes(st, X, U):
+    B, n = U.shape
+    traj = torch.empty((B, n, *X.shape[1:]), dtype=X.dtype, device=X.device)
+    traj[:, n - 1] = X
+    for i in range(n - 1, 0, -1):
+        X = tebd_step(st, X, U[:, i], U[:, i - 1], forward=False)
+        traj[:, i - 1] = X
+    return traj
+
+
+def rollout(st: TEBDStepper, psi0, u):
+    """Forward sweep: psi_t for all N_t times, (N_t, L, chi, p, chi) or
+    (B, N_t, ...) (the reference's calcPsi)."""
+    A, U, batched = _lanes(psi0, u)
+    return _out(_rollout_lanes(st, A, U), batched)
+
+
+def _final_lanes(st, A, U):
+    for i in range(U.shape[1] - 1):
+        A = tebd_step(st, A, U[:, i], U[:, i + 1], forward=True)
+    return A
+
+
+def rollout_final(st: TEBDStepper, psi0, u):
+    """Forward sweep returning psi(T) only."""
+    A, U, batched = _lanes(psi0, u)
+    return _out(_final_lanes(st, A, U), batched)
+
+
+def costate_rollout(st: TEBDStepper, psi_target, u):
+    """Backward sweep from the target, ordered by time (xi_t[N_t-1] =
+    psi_target): xi_{i-1} = step(xi_i, u_i, u_{i-1}, backward) (calcXi)."""
+    X, U, batched = _lanes(psi_target, u)
+    return _out(_costate_lanes(st, X, U), batched)
+
+
+# ---------------------------------------------------------------------------
+# cost / fidelity
+# ---------------------------------------------------------------------------
+
+def cost(st: TEBDStepper, psi0, psi_target, u, gamma):
+    """J(u) (calcCost). Differentiate it with `gradient`: autodiff through
+    the truncating rollout is not supported."""
+    A, U, batched = _lanes(psi0, u)
+    ov = _overlap_with(psi_target, _final_lanes(st, A, U))
+    fid = (ov * ov.conj()).real
+    return _out(0.5 * (1.0 - fid) + regularization(U, gamma, st.dt), batched)
+
+
+def fidelities(st: TEBDStepper, psi0, psi_target, u):
+    """|<psi_target|psi(t_i)>|^2 for every i (calcFidelityForAllT)."""
+    A, U, batched = _lanes(psi0, u)
+    traj = _rollout_lanes(st, A, U)
+    B, n = U.shape
+    ov = _overlap_with(psi_target, traj.reshape(B * n, *traj.shape[2:]))
+    return _out((ov * ov.conj()).real.reshape(B, n), batched)
+
+
+def fidelities_streaming(st: TEBDStepper, psi0, psi_target, u):
+    """fidelities() with one state per lane in flight instead of the
+    trajectory stack; same values."""
+    A, U, batched = _lanes(psi0, u)
+
+    def measure(s):
+        ov = _overlap_with(psi_target, s)
+        return (ov * ov.conj()).real
+
+    fids = rollout_measure(
+        lambda s, ua, ub: tebd_step(st, s, ua, ub, forward=True),
+        A, U, measure)
+    return _out(fids.T, batched)
+
+
+# ---------------------------------------------------------------------------
+# gradient
+# ---------------------------------------------------------------------------
+
+def _div_t(st: TEBDStepper, xi_t, psi_t):
+    """divT_i = <xi_i| dH/du |psi_i>, dH/du = sum_j 0.5 n_j(n_j-1)
+    (calcDivT), for (B, N_t, L, chi, p, chi) stacks -> (B, N_t)."""
+    B, n = psi_t.shape[:2]
+    return mpslib.sandwich_site_sum(xi_t.reshape(B * n, *xi_t.shape[2:]),
+                                    psi_t.reshape(B * n, *psi_t.shape[2:]),
+                                    0.5 * st.nn1).reshape(B, n)
+
+
+def gradient(st: TEBDStepper, psi0, psi_target, u, gamma):
+    """Analytic gradient dJ/du (calcAnalyticGradient + calcFidelityGrad).
+    Returns (g, (psi_t, xi_t, divT, ov)), ov = <psi(T)|psi_target>."""
+    A, U, batched = _lanes(psi0, u)
+    X = _lanes(psi_target, u)[0]
+    psi_t = _rollout_lanes(st, A, U)
+    xi_t = _costate_lanes(st, X, U)
+    divT = _div_t(st, xi_t, psi_t)
+    ov = mpslib.overlap(psi_t[:, -1], X)
+    g = (st.dt * (divT * ov[:, None] * 1j).real
+         + regularization_grad(U, gamma, st.dt))
+    return _out(g, batched), tuple(_out(x, batched)
+                                   for x in (psi_t, xi_t, divT, ov))
+
+
+def gradient_lowmem(st: TEBDStepper, psi0, psi_target, u, gamma):
+    """Memory-light gradient: xi is never stored, divT is computed inline
+    during the one backward sweep (the reference's BFGS mode). Returns
+    (g, (psi_t, None, divT, ov))."""
+    A, U, batched = _lanes(psi0, u)
+    X = _lanes(psi_target, u)[0]
+    half = 0.5 * st.nn1
+    psi_t = _rollout_lanes(st, A, U)
+    n = U.shape[1]
+    divT = torch.empty(U.shape, dtype=psi_t.dtype, device=psi_t.device)
+    divT[:, n - 1] = mpslib.sandwich_site_sum(X, psi_t[:, -1], half)
+    xi = X
+    for i in range(n - 1, 0, -1):
+        xi = tebd_step(st, xi, U[:, i], U[:, i - 1], forward=False)
+        divT[:, i - 1] = mpslib.sandwich_site_sum(xi, psi_t[:, i - 1], half)
+    ov = mpslib.overlap(psi_t[:, -1], X)
+    g = (st.dt * (divT * ov[:, None] * 1j).real
+         + regularization_grad(U, gamma, st.dt))
+    return _out(g, batched), (_out(psi_t, batched), None,
+                              _out(divT, batched), _out(ov, batched))
+
+
+def cost_and_gradient(st: TEBDStepper, psi0, psi_target, u, gamma):
+    """Cost and gradient sharing one forward sweep."""
+    g, (_, _, _, ov) = gradient(st, psi0, psi_target, u, gamma)
+    fid = (ov * ov.conj()).real
+    return 0.5 * (1.0 - fid) + regularization(u, gamma, st.dt), g
+
+
+# ---------------------------------------------------------------------------
+# Hessian: batched row propagation
+# ---------------------------------------------------------------------------
+
+def hessian(st: TEBDStepper, psi0, psi_target, u, gamma, aux=None):
+    """Exact dense Hessian of J for one control u (N_t,) (calcHessian_*).
+
+    Row i needs psiH_i(t_j) = U(t_j <- t_i) dH psi_i for j > i. All row
+    states are one batch: at each time j the rows with 1 <= i < j step
+    together (rows i >= j are frozen, and row 0 and rows past N_t-2 are
+    masked out of H, as in the JAX package), then every active row is
+    overlapped with xiH_j. aux: (psi_t, xi_t, divT, ov) from `gradient`.
+    """
+    n = u.shape[0]
+    dt = st.dt
+    half = 0.5 * st.nn1
+    if aux is None:
+        _, aux = gradient(st, psi0, psi_target, u, gamma)
+    psi_t, xi_t, divT, ov = aux
+
+    # xiH_j = dH|xi_j> and the row states psiH_i(t_i) = dH|psi_i>,
+    # normalized, with their norms
+    xiH, xiH_norm = mpslib.apply_site_sum_diag(xi_t, half,
+                                               method=st.trunc_method)
+    rows, row_norm = mpslib.apply_site_sum_diag(psi_t, half,
+                                                method=st.trunc_method)
+
+    ovm = torch.zeros((n, n), dtype=rows.dtype, device=rows.device)
+    states = rows.clone()
+    for j in range(2, n - 1):      # j = 1 has no active row i >= 1
+        act = tebd_step(st, states[1:j], u[j - 1], u[j], forward=True)
+        states[1:j] = act
+        ovm[j, 1:j] = _overlap_with(xiH[j], act)  # <xiH_j|psiH_i(t_j)>
+
+    diag_ov = mpslib.overlap(xiH, rows)
+    Hd = (ov * diag_ov * xiH_norm * row_norm).real - (divT * divT.conj()).real
+    val1 = (ov * ovm * xiH_norm[:, None] * row_norm[None, :]).real
+    val2 = -(divT[None, :] * divT.conj()[:, None]).real
+    idx = torch.arange(n, device=rows.device)
+    jj, ii = idx[:, None], idx[None, :]
+    mask = (ii >= 1) & (jj > ii) & (jj <= n - 2)
+    Hoff = torch.where(mask, val1 + val2, torch.zeros_like(val1))
+    interior = (idx >= 1) & (idx <= n - 2)
+    H = Hoff + Hoff.T + torch.diag(torch.where(interior, Hd,
+                                               torch.zeros_like(Hd)))
+    return H * dt * dt + regularization_hessian(n, gamma, dt, dtype=H.dtype,
+                                                device=H.device)

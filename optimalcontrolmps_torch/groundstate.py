@@ -1,7 +1,8 @@
-"""Fixed particle-number sector of the Bose-Hubbard chain (numpy).
+"""Fixed particle-number sector of the Bose-Hubbard chain, ground states.
 
-Counterpart of optimalcontrolmps_tpu/groundstate.py:26-135, pure-Python
-paths only. Hamiltonian:
+Counterpart of optimalcontrolmps_tpu/groundstate.py: the sector basis and
+Hamiltonian in numpy, and `initialize_state`'s exact path (an MPS on a
+torch device; DMRG is not ported). Hamiltonian:
     H = -J sum_i (a_i adag_{i+1} + adag_i a_{i+1}) + U/2 sum_i n_i(n_i-1)
 """
 
@@ -10,8 +11,18 @@ from __future__ import annotations
 from functools import lru_cache
 
 import numpy as np
+import torch
 
-__all__ = ["sector_basis", "sector_hamiltonian", "sector_dim"]
+from . import mps as mpslib
+from .device import resolve_device
+
+__all__ = ["sector_basis", "sector_hamiltonian", "sector_dim",
+           "sector_ground_vector", "ground_statevector", "initialize_state",
+           "EXACT_DIAG_MAX_DIM"]
+
+# exact diagonalization below this sector dimension; above it the JAX
+# package runs DMRG, which the port does not have yet
+EXACT_DIAG_MAX_DIM = 20_000
 
 
 @lru_cache(maxsize=64)
@@ -75,3 +86,43 @@ def sector_dim(L: int, d: int, npart: int) -> int:
             new[n] = counts[max(0, n - d):n + 1].sum()
         counts = new
     return int(counts[npart])
+
+
+def sector_ground_vector(L: int, d: int, npart: int, J: float,
+                         U: float) -> np.ndarray:
+    """(ns,) exact ground state of the fixed-N sector, largest amplitude
+    made positive."""
+    _, v = np.linalg.eigh(sector_hamiltonian(L, d, npart, J, U))
+    g = v[:, 0]
+    return g * np.sign(g[int(np.argmax(np.abs(g)))])
+
+
+def ground_statevector(L: int, d: int, npart: int, J: float,
+                       U: float) -> np.ndarray:
+    """The sector ground state embedded in the full p**L space."""
+    _, flat = sector_basis(L, d, npart)
+    full = np.zeros((d + 1) ** L, dtype=np.complex128)
+    full[flat] = sector_ground_vector(L, d, npart, J, U)
+    return full
+
+
+def initialize_state(L: int, d: int, npart: int, J: float, U: float,
+                     chi: int, dtype=None, method: str = "auto",
+                     device=None):
+    """Ground-state MPS (L, chi, p, chi) on `device` (None means the card):
+    the reference's InitializeState, by exact diagonalization of the fixed-N
+    sector and successive SVDs. method "auto" or "exact"; "dmrg", and
+    sectors above EXACT_DIAG_MAX_DIM, wait for the DMRG slice."""
+    device = resolve_device(device)
+    dtype = torch.complex128 if dtype is None else dtype
+    if method == "auto":
+        method = "exact"
+    if method != "exact" or sector_dim(L, d, npart) > EXACT_DIAG_MAX_DIM:
+        raise NotImplementedError(
+            f"initialize_state(method={method!r}, sector dim "
+            f"{sector_dim(L, d, npart)}): DMRG ground states wait for the "
+            f"DMRG slice (ROADMAP Queue 1 item 13); the port diagonalizes "
+            f"sectors up to {EXACT_DIAG_MAX_DIM} states exactly")
+    vec = ground_statevector(L, d, npart, J, U)
+    A = mpslib.from_statevector(vec, L, d + 1, chi)
+    return torch.as_tensor(A, dtype=dtype, device=device)

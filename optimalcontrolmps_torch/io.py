@@ -1,0 +1,79 @@
+"""Result files in the reference's column formats.
+
+Counterpart of optimalcontrolmps_tpu/io.py (host numpy and json, copied so
+the port imports nothing of the JAX package): the ramp, progress,
+expectation and matrix text files, tab-separated like the reference's, and
+the JSON checkpoint of the control vector.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+
+__all__ = [
+    "write_ramp_file", "read_ramp_file", "append_progress",
+    "nprop_per_iteration", "write_expectation_file", "write_matrix",
+    "save_checkpoint",
+]
+
+
+def _fmt(v):
+    return f"{float(v):.10g}"
+
+
+def write_ramp_file(path, times, u_init, fid_init, u_final, fid_final):
+    """BHrampInitialFinal.txt: t, u_init, F_init, u_final, F_final per row."""
+    with open(path, "w") as f:
+        for row in zip(times, u_init, fid_init, u_final, fid_final):
+            f.write("\t".join(_fmt(v) for v in row) + "\n")
+
+
+def read_ramp_file(path):
+    """The 5-column ramp file as a dict of numpy arrays."""
+    data = np.loadtxt(path)
+    if data.ndim == 1:
+        data = data[None, :]
+    return {"times": data[:, 0], "u_init": data[:, 1],
+            "fid_init": data[:, 2], "u_final": data[:, 3],
+            "fid_final": data[:, 4]}
+
+
+def append_progress(path, iteration, objective, T, nprop):
+    """ProgressCache.txt: iter, obj, T, Nprop appended per iteration."""
+    with open(path, "a") as f:
+        f.write(f"{iteration}\t{_fmt(objective)}\t{_fmt(T)}\t{nprop}\n")
+
+
+def nprop_per_iteration(n_steps, ls_trials=0, exact_hessian=True):
+    """The reference's propagation count: N(2 + ls_trials) [+ N(N-1)/2]."""
+    n = n_steps * (2 + ls_trials)
+    if exact_hessian:
+        n += n_steps * (n_steps - 1) // 2
+    return n
+
+
+def write_expectation_file(path, times, expvals):
+    """ExpectationN.txt: t then per-site <N> per row."""
+    with open(path, "w") as f:
+        for t, row in zip(times, expvals):
+            f.write(_fmt(t) + "\t" + "\t".join(_fmt(v) for v in
+                                               np.real(row)) + "\t\n")
+
+
+def write_matrix(path, M):
+    """GROUPHessian.txt / GRAPEHessian.txt: tab-separated rows."""
+    with open(path, "w") as f:
+        for row in np.asarray(M):
+            f.write("\t".join(_fmt(v) for v in row) + "\t\n")
+
+
+def save_checkpoint(path, control, extra=None):
+    """Atomic JSON checkpoint of the control vector and metadata."""
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump({"control": np.asarray(control).tolist(),
+                   "extra": extra or {}}, f)
+    os.replace(tmp, path)

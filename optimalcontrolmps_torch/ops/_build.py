@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels of the port.
 
-The sources under `optimalcontrolmps_torch/csrc/` are compiled with nvcc for
+Each source under `optimalcontrolmps_torch/csrc/` is compiled with nvcc for
 Hopper (`sm_90a`) into a shared library with a plain C interface under
 `optimalcontrolmps_torch/build/`, named after the hash of the source, and
 loaded with ctypes. The first call builds; a changed source builds anew.
+`build_all` starts one nvcc per source at once and waits for all of them.
 Nothing is built or imported when this module is imported.
 """
 
@@ -16,16 +17,32 @@ import shutil
 import subprocess
 import time
 
-__all__ = ["load_sector_chain", "build_log"]
+__all__ = ["load_sector_chain", "load_bond_theta", "build_all", "build_log",
+           "SOURCES"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "sector_chain.cu")
 _BUILD = os.path.join(_PKG, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# library name -> {C entry point: argtypes}; every entry returns an int
+_ENTRIES = {
+    "sector_chain": {
+        "sector_chain_fwd": [_P] * 8 + [_I, _I, _F, _F, _P],
+        "sector_chain_bwd": [_P] * 9 + [_I, _I, _F, _F, _P],
+    },
+    "bond_theta": {
+        "bond_theta_c64": [_P] * 4 + [_I, _I, _I, _P],
+        "bond_theta_c128": [_P] * 4 + [_I, _I, _I, _P],
+    },
+}
+SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
+           for name in _ENTRIES}
+
 _loaded: dict = {}
-# what the last build printed (ptxas register/shared-memory report) and took
+# per library: what its build printed (ptxas register/shared-memory report),
+# the command, and the seconds it took
 build_log: dict = {}
 
 
@@ -41,36 +58,71 @@ def _nvcc() -> str:
     return found
 
 
-def _build(src: str, out: str) -> None:
+def _lib_path(name: str) -> str:
+    with open(SOURCES[name], "rb") as fh:
+        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
+    return os.path.join(_BUILD, f"lib{name}_{digest}.so")
+
+
+def _start(name: str):
+    """Start nvcc for one source; returns (name, out, tmp, cmd, t0, proc)."""
     os.makedirs(_BUILD, exist_ok=True)
+    out = _lib_path(name)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCES[name]]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return name, out, tmp, cmd, time.perf_counter(), proc
+
+
+def _finish(job) -> None:
+    name, out, tmp, cmd, t0, proc = job
+    text, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+                           f"{' '.join(cmd)}\n{text}")
     os.replace(tmp, out)
-    build_log.update(seconds=time.perf_counter() - t0,
-                     ptxas=proc.stdout + proc.stderr, cmd=" ".join(cmd))
+    build_log[name] = {"seconds": time.perf_counter() - t0, "ptxas": text,
+                       "cmd": " ".join(cmd)}
+
+
+def build_all() -> None:
+    """Build every library that is not built yet, one nvcc each, all
+    started together."""
+    jobs = [_start(name) for name in _ENTRIES
+            if name not in _loaded and not os.path.exists(_lib_path(name))]
+    errors = []
+    for job in jobs:
+        try:
+            _finish(job)
+        except RuntimeError as exc:
+            errors.append(str(exc))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def _load(name: str) -> ctypes.CDLL:
+    if name in _loaded:
+        return _loaded[name]
+    path = _lib_path(name)
+    if not os.path.exists(path):
+        _finish(_start(name))
+    lib = ctypes.CDLL(path)
+    for fn, argtypes in _ENTRIES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = _I
+    _loaded[name] = lib
+    return lib
 
 
 def load_sector_chain() -> ctypes.CDLL:
     """The sector-chain library, built at first use. The C entry points
     return cudaGetLastError() after their launch."""
-    if "sector_chain" in _loaded:
-        return _loaded["sector_chain"]
-    with open(_SRC, "rb") as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
-    path = os.path.join(_BUILD, f"libsector_chain_{digest}.so")
-    if not os.path.exists(path):
-        _build(_SRC, path)
-    lib = ctypes.CDLL(path)
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.sector_chain_fwd.argtypes = [P, P, P, P, P, P, P, P, I, I, F, F, P]
-    lib.sector_chain_fwd.restype = I
-    lib.sector_chain_bwd.argtypes = [P, P, P, P, P, P, P, P, P, I, I, F, F,
-                                     P]
-    lib.sector_chain_bwd.restype = I
-    _loaded["sector_chain"] = lib
-    return lib
+    return _load("sector_chain")
+
+
+def load_bond_theta() -> ctypes.CDLL:
+    """The bond-theta library, built at first use. The C entry points
+    return cudaGetLastError() after their launch, or a CUDA error code for
+    a shape whose shared memory does not fit in one block."""
+    return _load("bond_theta")

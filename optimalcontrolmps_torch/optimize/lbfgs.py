@@ -116,9 +116,11 @@ def _wolfe_search(fg, x, f0, g0, p, max_ls: int, c1=1e-4, c2=0.9, a0=1.0):
 
 def minimize_lbfgs(fun_and_grad: Callable, x0, max_iter: int = 100,
                    tol: float = 1e-8, history: int = 10, max_ls: int = 20,
-                   max_fails: int = 3) -> LBFGSResult:
+                   max_fails: int = 3,
+                   callback: Callable | None = None) -> LBFGSResult:
     """Minimize f from x0 (n,). fun_and_grad(x) -> (f, g). Converged when
-    ||g||_inf < tol."""
+    ||g||_inf < tol. `callback(it, f, gnorm, ls_evals)`, if given, runs
+    after every iteration (the reference's intermediate_callback)."""
     n = x0.shape[0]
     m = history
     S = torch.zeros((m, n), dtype=x0.dtype, device=x0.device)
@@ -160,9 +162,12 @@ def minimize_lbfgs(fun_and_grad: Callable, x0, max_iter: int = 100,
         fails = 0 if accept else fails + 1
         if accept:
             x, f, g = x_new, f_new, g_new
-        converged = float(torch.max(torch.abs(g))) < tol
+        gnorm = float(torch.max(torch.abs(g)))
+        converged = gnorm < tol
         it += 1
         evals += k
+        if callback is not None:
+            callback(it, f, gnorm, k)
         done = converged or fails >= max_fails
 
     return LBFGSResult(x=x, f=f, grad_norm=float(torch.max(torch.abs(g))),

@@ -23,18 +23,21 @@ import torch
 
 from .engine import (regularization, regularization_grad,
                      regularization_hessian)
-from .groundstate import sector_basis, sector_hamiltonian
+from .groundstate import sector_basis, sector_ground_vector
 from .ops.gates import j_gate
+from .device import resolve_device
 
 __all__ = [
     "SectorStepper", "make_sector_stepper", "stepper_from_numpy",
-    "sector_step", "sector_ground_state", "rollout", "rollout_final",
-    "costate_rollout", "cost", "fidelities", "gradient",
-    "cost_and_gradient_exact", "hessian",
+    "sector_step", "sector_ground_state", "expectation_n", "rollout",
+    "rollout_final", "costate_rollout", "cost", "fidelities",
+    "fidelities_streaming", "gradient", "gradient_lowmem",
+    "cost_and_gradient", "cost_and_gradient_exact", "hessian",
+    "SECTOR_MAX_DIM",
 ]
 
-_REAL = {torch.complex64: torch.float32, torch.complex128: torch.float64}
-
+# largest sector the dense engine takes (sector.py:58 of the JAX package)
+SECTOR_MAX_DIM = 4096
 
 @lru_cache(maxsize=32)
 def _sector_jgate_product(L: int, d: int, npart: int, J: float,
@@ -116,9 +119,15 @@ def stepper_from_numpy(fields: dict, device) -> SectorStepper:
 
 
 def make_sector_stepper(L: int, d: int, npart: int, J: float, dt: float,
-                        dtype=torch.complex128, device="cpu") -> SectorStepper:
+                        dtype=torch.complex128, device=None) -> SectorStepper:
+    """device=None means the card."""
+    device = resolve_device(device)
     states, _ = sector_basis(L, d, npart)
     ns = states.shape[0]
+    if ns > SECTOR_MAX_DIM:
+        raise ValueError(
+            f"sector dim {ns} > SECTOR_MAX_DIM={SECTOR_MAX_DIM}; "
+            "use the MPS engine (tebd/engine) for this problem size")
     WJ = _sector_jgate_product(L, d, npart, float(J), float(dt))
     nn1 = np.sum(states * (states - 1.0), axis=1)
     vals, inv = np.unique(nn1, return_inverse=True)
@@ -138,7 +147,7 @@ def make_sector_stepper(L: int, d: int, npart: int, J: float, dt: float,
     else:
         WJp, nn1_p, inv_p = WJ, nn1, inv
 
-    rdt = _REAL[dtype]
+    rdt = dtype.to_real()
 
     def c(a):
         return torch.as_tensor(a, dtype=dtype, device=device)
@@ -158,12 +167,18 @@ def make_sector_stepper(L: int, d: int, npart: int, J: float, dt: float,
 
 
 def sector_ground_state(L: int, d: int, npart: int, J: float, U: float,
-                        dtype=torch.complex128, device="cpu") -> torch.Tensor:
-    """(ns,) exact sector ground state, largest amplitude made positive."""
-    w, v = np.linalg.eigh(sector_hamiltonian(L, d, npart, J, U))
-    g = v[:, 0]
-    g = g * np.sign(g[int(np.argmax(np.abs(g)))])
-    return torch.as_tensor(g, dtype=dtype, device=device)
+                        dtype=torch.complex128, device=None) -> torch.Tensor:
+    """(ns,) exact sector ground state, largest amplitude made positive.
+    device=None means the card."""
+    device = resolve_device(device)
+    return torch.as_tensor(sector_ground_vector(L, d, npart, J, U),
+                           dtype=dtype, device=device)
+
+
+def expectation_n(st: SectorStepper, psi) -> torch.Tensor:
+    """Per-site <n_i> of (..., ns) sector vectors: sum_k |psi_k|^2 occ[k, i]
+    (the Fock basis is diagonal in n)."""
+    return (psi * psi.conj()).real @ st.occ
 
 
 def _phase_p(st: SectorStepper, u, power, dtype,
@@ -270,6 +285,12 @@ def fidelities(st: SectorStepper, psi0, psi_target, u):
     return (ovs * ovs.conj()).real
 
 
+def fidelities_streaming(st: SectorStepper, psi0, psi_target, u):
+    """API parity with engine.fidelities_streaming: sector states are (ns,)
+    vectors, so the stacked trajectory is already small."""
+    return fidelities(st, psi0, psi_target, u)
+
+
 def _div_t(st: SectorStepper, xi_t, psi_t):
     """divT_i = <xi_i| dH/du |psi_i>, dH/du = 0.5 nn1 (diagonal)."""
     half = 0.5 * st.nn1
@@ -285,6 +306,48 @@ def gradient(st: SectorStepper, psi0, psi_target, u, gamma):
     ov = torch.sum(psi_t[-1].conj() * psi_target)  # <psi(T)|psi_target>
     g = st.dt * (divT * ov * 1j).real + regularization_grad(u, gamma, st.dt)
     return g, (psi_t, xi_t, divT, ov)
+
+
+def gradient_lowmem(st: SectorStepper, psi0, psi_target, u, gamma):
+    """Memory-light gradient (the reference's BFGS mode): xi is never
+    stored and divT is computed inline during the backward sweep. Both
+    sweeps carry half-phased states h_i = D(u_i) psi_i, gx_i = D(-u_i) xi_i
+    with one merged phase per step and no per-step normalization, and
+        divT_i = <gx_i| D(-u_i)^2 (0.5 nn1) |h_i>.
+    Returns (g, (None, None, divT, ov))."""
+    dtype = psi0.dtype
+    half = (0.5 * st.nn1_p).to(dtype)
+    n = u.shape[0]
+    h = _pad(st, psi0) * _phase_p(st, u[0], 1, dtype, True)
+    h_t = [h]
+    P = _phase_rows(st, u[1:], 2, dtype, True)
+    for i in range(n - 1):
+        h = (st.WJ_fwd_p @ h) * P[i]
+        h_t.append(h)
+    hT = h
+
+    Pm2 = _phase_rows(st, u, -2, dtype, True)
+    gx = _pad(st, psi_target) * _phase_p(st, u[-1], -1, dtype, True)
+    divT = [None] * n
+    divT[n - 1] = torch.sum(gx.conj() * Pm2[n - 1] * half * hT)
+    for i in range(n - 1, 0, -1):
+        gx = (st.WJ_bwd_p @ gx) * Pm2[i - 1]
+        divT[i - 1] = torch.sum(gx.conj() * Pm2[i - 1] * half * h_t[i - 1])
+    divT = torch.stack(divT)
+
+    # ov = <psi(T)|psi_target>; psi_T = D(-u_{N-1}) hT, normalized once
+    ov = torch.sum(hT.conj() * _phase_p(st, u[-1], 1, dtype, True)
+                   * _pad(st, psi_target))
+    ov = ov / torch.clamp(torch.linalg.vector_norm(hT), min=1e-16).to(dtype)
+    g = st.dt * (divT * ov * 1j).real + regularization_grad(u, gamma, st.dt)
+    return g, (None, None, divT, ov)
+
+
+def cost_and_gradient(st: SectorStepper, psi0, psi_target, u, gamma):
+    """Cost and adjoint gradient sharing one forward sweep."""
+    g, (_, _, _, ov) = gradient(st, psi0, psi_target, u, gamma)
+    fid = (ov * ov.conj()).real
+    return 0.5 * (1.0 - fid) + regularization(u, gamma, st.dt), g
 
 
 def cost_and_gradient_exact(st: SectorStepper, psi0, psi_target, u, gamma):

@@ -7,21 +7,25 @@ loading tests/conftest.py, which imports JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
-Tolerances are those of tests/test_pallas_sector.py: the kernels and the
-twins do the same float32 arithmetic in another order.
+Tolerances: the sector-chain kernels those of tests/test_pallas_sector.py
+(the kernels and the twins do the same float32 arithmetic in another
+order); the bond-theta kernel max|d|/max|twin| < 1e-5 in complex64
+(tests/test_pallas_kernels.py:22) and < 1e-12 in complex128.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from optimalcontrolmps_torch import flagship
+from optimalcontrolmps_torch import flagship, groundstate, mps, tebd
+from optimalcontrolmps_torch.ops import bond_theta as bt
 from optimalcontrolmps_torch.ops import sector_chain as sc
 from optimalcontrolmps_torch.seeds import adiabatic_seed
 
 FWD_TOL = 2e-5   # tests/test_pallas_sector.py:51
 BWD_TOL = 3e-5   # times max(max|du|, 1), tests/test_pallas_sector.py:75
 N_T = 201        # the flagship's T=2.0, dt=0.01
+THETA_TOL = {torch.complex64: 1e-5, torch.complex128: 1e-12}
 
 pytestmark = pytest.mark.cuda
 
@@ -98,3 +102,66 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev, prob):
         sc.chain_fwd(dt, Wr.T, Wi, nn1, u, h0r, h0i)
     with pytest.raises(ValueError, match="shape"):
         sc.chain_fwd(dt, Wr[:64, :64].contiguous(), Wi, nn1, u, h0r, h0i)
+
+
+def _theta_inputs(B, chi, p, dtype, seed, device):
+    rng = np.random.default_rng(seed)
+
+    def mk(*s):
+        return torch.as_tensor(rng.standard_normal(s)
+                               + 1j * rng.standard_normal(s),
+                               dtype=dtype, device=device)
+    return mk(B, chi, p, chi), mk(B, chi, p, chi), mk(p * p, p * p)
+
+
+# the MPS slice's bond (chi=25, p=5), the reference-scale bond (chi=128,
+# p=8) and a small ragged one
+@pytest.mark.parametrize("B,chi,p,dtype", [
+    (4, 25, 5, torch.complex128), (4, 25, 5, torch.complex64),
+    (2, 128, 8, torch.complex64), (3, 7, 3, torch.complex128)])
+def test_bond_theta_kernel_matches_twin(dev, B, chi, p, dtype):
+    Ai, Aj, G = _theta_inputs(B, chi, p, dtype, 0, dev)
+    bt.reset_counts()
+    out = bt.bond_theta(Ai, Aj, G)
+    assert bt.bond_theta_launches == 1
+    ref = bt.bond_theta_reference(Ai, Aj, G)
+    torch.cuda.synchronize()
+    assert out.shape == (B, chi * p, p * chi) and out.dtype == dtype
+    rel = float(torch.max(torch.abs(out - ref)) / torch.max(torch.abs(ref)))
+    assert rel < THETA_TOL[dtype]
+
+
+def test_bond_theta_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    Ai, Aj, G = _theta_inputs(2, 6, 3, torch.complex128, 1, dev)
+    with pytest.raises(TypeError, match="complex64 or complex128"):
+        bt.bond_theta(Ai, Aj.to(torch.complex64), G)
+    with pytest.raises(ValueError, match="contiguous"):
+        bt.bond_theta(Ai, Aj.transpose(1, 3), G)
+    with pytest.raises(ValueError, match="shape"):
+        bt.bond_theta(Ai, Aj, G[:4, :4].contiguous())
+    with pytest.raises(ValueError, match="CUDA"):
+        bt.bond_theta(Ai, Aj.cpu(), G)
+    with pytest.raises(RuntimeError, match="no backward"):
+        bt.bond_theta(Ai.requires_grad_(True), Aj, G)
+
+
+def test_tebd_step_on_the_card_matches_the_cpu(dev):
+    """A few forward, then backward, snake steps of a 4-site chain on the
+    card (the kernel) and on the CPU (the twin), compared as a
+    gauge-invariant overlap."""
+    L, d, chi = 4, 2, 9
+    out = []
+    bt.reset_counts()
+    for device in (dev, "cpu"):
+        st = tebd.make_stepper(L, d, 1.0, 0.01, chi, device=device)
+        A = groundstate.initialize_state(L, d, L, 1.0, 2.5, chi,
+                                         device=device)[None]
+        u = torch.linspace(2.5, 10.0, 6, dtype=torch.float64)
+        for i in range(5):
+            A = tebd.tebd_step(st, A, u[i], u[i + 1])
+        for i in range(5, 0, -1):
+            A = tebd.tebd_step(st, A, u[i], u[i - 1], forward=False)
+        out.append(A.cpu())
+    assert bt.bond_theta_launches == 10 * (L - 1)
+    ov = mps.overlap(*out)
+    assert abs(abs(complex(ov[0])) - 1.0) < 1e-12

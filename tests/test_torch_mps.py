@@ -1,0 +1,188 @@
+"""Parity of the port's MPS functions and truncations with the JAX package.
+
+Both packages get the same numpy-seeded states (L=4, p=3, chi=9, complex128)
+on the CPU. MPS tensors may differ by a gauge (eigh/QR bases differ between
+LAPACK builds), so only gauge-invariant quantities are compared: dense
+statevectors, overlaps, norms, expectation values, entropies, and the
+products left @ right of the truncations, at 1e-10.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from optimalcontrolmps_tpu import mps as jmps
+from optimalcontrolmps_tpu.ops import trunc as jtrunc
+from optimalcontrolmps_tpu.sites import nn1_diag, op
+from optimalcontrolmps_torch import mps
+from optimalcontrolmps_torch.ops import trunc
+
+torch.set_num_threads(2)
+
+L, P, CHI = 4, 3, 9
+TOL = 1e-10
+
+
+def _random_mps(seed, chi=CHI):
+    rng = np.random.default_rng(seed)
+    v = rng.standard_normal(P ** L) + 1j * rng.standard_normal(P ** L)
+    return mps.from_statevector(v / np.linalg.norm(v), L, P, chi)
+
+
+@pytest.fixture(scope="module")
+def states():
+    return _random_mps(0), _random_mps(1)
+
+
+def _t(A):
+    return torch.as_tensor(np.asarray(A))[None]
+
+
+def _np(x):
+    return x.resolve_conj().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def _close(a, b, tol=TOL):
+    np.testing.assert_allclose(_np(a), _np(b), atol=tol, rtol=0)
+
+
+def test_host_constructors_equal():
+    rng = np.random.default_rng(2)
+    v = rng.standard_normal(P ** L) + 1j * rng.standard_normal(P ** L)
+    np.testing.assert_array_equal(mps.from_statevector(v, L, P, CHI),
+                                  jmps.from_statevector(v, L, P, CHI))
+    np.testing.assert_array_equal(mps.product_state([1, 0, 2, 1], P, CHI),
+                                  jmps.product_state([1, 0, 2, 1], P, CHI))
+    A = mps.from_statevector(v, L, P, CHI)
+    np.testing.assert_array_equal(mps.pad_chi(A, 12), jmps.pad_chi(A, 12))
+
+
+def test_statevector_overlap_norm(states):
+    a, b = states
+    _close(mps.to_statevector(_t(a))[0], jmps.to_statevector(jnp.asarray(a)))
+    _close(mps.overlap(_t(a), _t(b))[0],
+           jmps.overlap(jnp.asarray(a), jnp.asarray(b)))
+    scaled = 1.7 * a
+    _close(mps.norm(_t(scaled))[0], jmps.norm(jnp.asarray(scaled)))
+    _close(mps.to_statevector(mps.normalize(_t(scaled)))[0],
+           jmps.to_statevector(jmps.normalize(jnp.asarray(scaled))))
+
+
+def test_sandwich_and_expectation_values(states):
+    a, b = states
+    half = 0.5 * nn1_diag(P - 1)
+    _close(mps.sandwich_site_sum(_t(a), _t(b), half)[0],
+           jmps.sandwich_site_sum(jnp.asarray(a), jnp.asarray(b), half))
+    n_op = op("N", P - 1)
+    _close(mps.expectation_values(_t(a), n_op)[0],
+           jmps.expectation_values(jnp.asarray(a), n_op))
+
+
+def test_batch_axis_is_independent_lanes(states):
+    a, b = states
+    AB = torch.cat([_t(a), _t(b)])
+    BA = torch.cat([_t(b), _t(a)])
+    ov = mps.overlap(AB, BA)
+    _close(ov[0], mps.overlap(_t(a), _t(b))[0], 1e-14)
+    _close(ov[1], mps.overlap(_t(b), _t(a))[0], 1e-14)
+
+
+@pytest.mark.parametrize("method", ["qr", "cholesky"])
+def test_gauge_moves_keep_the_state(states, method):
+    a, _ = states
+    A = _t(a)
+    v0 = mps.to_statevector(A)
+    T = list(A.unbind(1))
+    T[0], T[1] = mps.move_right(T[0], T[1], method=method)
+    T[1], T[2] = mps.move_right(T[1], T[2], method=method)
+    moved = torch.stack(T, dim=1)
+    tol = 1e-10 if method == "qr" else 1e-8
+    _close(mps.to_statevector(moved), v0, tol)
+    # left isometry on site 0 (CholeskyQR's ridge leaves it 1e-6 off)
+    m = T[0].reshape(CHI * P, CHI)
+    _close((m.conj().T @ m)[:P, :P], torch.eye(P, dtype=m.dtype),
+           tol if method == "qr" else 1e-6)
+    T[1], T[2] = mps.move_left(T[1], T[2], method=method)
+    _close(mps.to_statevector(torch.stack(T, dim=1)), v0, tol)
+    ja, jb = jmps.move_left(jnp.asarray(a[1]), jnp.asarray(a[2]),
+                            method=method)
+    ta, tb = mps.move_left(_t(a[1]), _t(a[2]), method=method)
+    _close(torch.einsum('apb,bqc->apqc', ta[0], tb[0]),
+           jnp.einsum('apb,bqc->apqc', ja, jb), tol)
+
+
+def test_apply_site_sum_diag(states):
+    a, _ = states
+    half = 0.5 * nn1_diag(P - 1)
+    C, nrm = mps.apply_site_sum_diag(_t(a), half)
+    jC, jn = jmps.apply_site_sum_diag(jnp.asarray(a), half)
+    _close(nrm[0], jn)
+    _close(mps.to_statevector(C)[0] * nrm[0],
+           np.asarray(jmps.to_statevector(jC)) * float(jn))
+
+
+def test_entanglement_entropies(states):
+    a, _ = states
+    _close(mps.entanglement_entropies(_t(a))[0],
+           jmps.entanglement_entropies(jnp.asarray(a)))
+
+
+@pytest.mark.parametrize("method", ["eigh", "svd", "rsvd", "rsvd1", "range"])
+@pytest.mark.parametrize("keep_left", [True, False])
+def test_split_truncate_exact_rank(method, keep_left):
+    """rank(theta) = 5 <= chi = 8: every method splits exactly, and the
+    isometric factor is orthonormal on its support."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((12, 5)) + 1j * rng.standard_normal((12, 5))
+    y = rng.standard_normal((5, 10)) + 1j * rng.standard_normal((5, 10))
+    theta = x @ y
+    left, right = trunc.split_truncate(torch.as_tensor(theta)[None], 8,
+                                       keep_left, method=method)
+    jl, jr = jtrunc.split_truncate(jnp.asarray(theta), 8, keep_left,
+                                   method=method)
+    assert left.shape == (1, 12, 8) and right.shape == (1, 8, 10)
+    _close((left @ right)[0], np.asarray(jl) @ np.asarray(jr), 1e-9)
+    _close((left @ right)[0], theta, 1e-9)
+    iso = left[0] if keep_left else right[0].conj().T
+    gram = iso.conj().T @ iso
+    support = torch.diagonal(gram).real > 0.5
+    assert int(support.sum()) >= 5
+    _close(gram[support][:, support],
+           torch.eye(int(support.sum()), dtype=gram.dtype), 1e-9)
+
+
+@pytest.mark.parametrize("method", ["eigh", "svd", "rsvd"])
+def test_split_truncate_keeps_the_top_subspace(method):
+    """Real truncation with a gap between the 4th and 5th singular values:
+    the kept subspace is unique, so the product equals JAX's."""
+    rng = np.random.default_rng(4)
+    u, _ = np.linalg.qr(rng.standard_normal((10, 10))
+                        + 1j * rng.standard_normal((10, 10)))
+    v, _ = np.linalg.qr(rng.standard_normal((10, 10))
+                        + 1j * rng.standard_normal((10, 10)))
+    s = np.array([3.0, 2.0, 1.5, 1.0, 0.1, 0.05, 0.02, 0.01, 0.005, 0.001])
+    theta = (u * s) @ v.conj().T
+    left, right = trunc.split_truncate(torch.as_tensor(theta)[None], 4, True,
+                                       method=method)
+    jl, jr = jtrunc.split_truncate(jnp.asarray(theta), 4, True,
+                                   method="svd")
+    _close((left @ right)[0], np.asarray(jl) @ np.asarray(jr), 1e-9)
+
+
+def test_jitter_and_cholesky_orthonormalize():
+    rng = np.random.default_rng(5)
+    B = rng.standard_normal((7, 4)) + 1j * rng.standard_normal((7, 4))
+    rho = B @ B.conj().T
+    _close(trunc._jitter(torch.as_tensor(rho)[None])[0],
+           jtrunc._jitter(jnp.asarray(rho)), 1e-12)
+    q, Lc = trunc.cholesky_orthonormalize(torch.as_tensor(B)[None])
+    jq, jL = jtrunc.cholesky_orthonormalize(jnp.asarray(B))
+    _close(q[0], jq, 1e-10)
+    _close(Lc[0], jL, 1e-10)
+
+
+def test_nssub_is_refused():
+    with pytest.raises(ValueError, match="Vidal"):
+        trunc.split_truncate(torch.zeros((1, 4, 4), dtype=torch.complex128),
+                             2, True, method="nssub")

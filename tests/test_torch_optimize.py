@@ -146,13 +146,15 @@ def test_batched_lbfgs_matches_single_on_sector_objective():
     reproduces lane-by-lane solves on the float32 sector objective."""
     T, DT, M, GAMMA = 0.5, 0.01, 8, 1e-6
     N = int(round(T / DT)) + 1
-    st = sector.make_sector_stepper(5, 4, 5, 1.0, DT, dtype=torch.complex64)
+    st = sector.make_sector_stepper(5, 4, 5, 1.0, DT, dtype=torch.complex64,
+                                    device="cpu")
     psi_i = sector.sector_ground_state(5, 4, 5, 1.0, 2.5,
-                                       dtype=torch.complex64)
+                                       dtype=torch.complex64, device="cpu")
     psi_f = sector.sector_ground_state(5, 4, 5, 1.0, 50.0,
-                                       dtype=torch.complex64)
+                                       dtype=torch.complex64, device="cpu")
     u0 = seeds.linsigmoid_seed(2.5, 50.0, N, rng=np.random.default_rng(1))
-    basis = control.chopped_sine_basis(u0, DT, T, M, dtype=torch.float32)
+    basis = control.chopped_sine_basis(u0, DT, T, M, dtype=torch.float32,
+                                       device="cpu")
     cs = np.random.default_rng(11).uniform(-0.3, 0.3, size=(6, M))
     cs = torch.as_tensor(cs.astype(np.float32))
 

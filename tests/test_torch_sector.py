@@ -80,7 +80,7 @@ def test_sector_basis_and_hamiltonian_equal():
                                    "nn1_inv_p", "nn1_vals", "occ"])
 def test_stepper_fields_equal(prob, field):
     _, fields, _, _, _, _ = prob
-    st = sector.make_sector_stepper(L, D, NPART, 1.0, DT)
+    st = sector.make_sector_stepper(L, D, NPART, 1.0, DT, device="cpu")
     assert (st.ns, st.ns_p) == (121, 128)
     np.testing.assert_allclose(getattr(st, field).numpy(), fields[field],
                                atol=1e-14)
@@ -89,7 +89,8 @@ def test_stepper_fields_equal(prob, field):
 @pytest.mark.parametrize("U", [2.5, 50.0])
 def test_ground_states_equal(U):
     np.testing.assert_allclose(
-        sector.sector_ground_state(L, D, NPART, 1.0, U).numpy(),
+        sector.sector_ground_state(L, D, NPART, 1.0, U,
+                                   device="cpu").numpy(),
         jsector.sector_ground_state(L, D, NPART, 1.0, U), atol=1e-14)
 
 
@@ -109,7 +110,7 @@ def test_seeds_equal():
 def test_basis_equal_and_converts():
     u0 = jseeds.linsigmoid_seed(2.5, 50.0, N, rng=np.random.default_rng(1))
     b_j = jcontrol.chopped_sine_basis(u0, DT, T, M)
-    b_t = control.chopped_sine_basis(u0, DT, T, M)
+    b_t = control.chopped_sine_basis(u0, DT, T, M, device="cpu")
     for name in ("u0", "S", "f"):
         np.testing.assert_allclose(getattr(b_t, name).numpy(),
                                    np.asarray(getattr(b_j, name)), atol=1e-14)
@@ -134,7 +135,7 @@ def test_regularization_and_penalty_equal(prob):
         np.asarray(jengine.regularization_grad(jnp.asarray(u), GAMMA, DT)),
         atol=1e-14)
     np.testing.assert_array_equal(
-        engine.regularization_hessian(N, GAMMA, DT).numpy(),
+        engine.regularization_hessian(N, GAMMA, DT, device="cpu").numpy(),
         np.asarray(jengine.regularization_hessian(N, GAMMA, DT)))
     v = u - 10.0  # some controls below the bound u_min=2
     assert abs(float(penalty.bound_penalty(_t(v)))

@@ -7,8 +7,11 @@ Builds the hand-written Hopper kernels of optimalcontrolmps_torch from csrc/
 
 1. holds each kernel against its plain PyTorch twin at the shapes its main
    path gives it: the sector chain (fwd, bwd) at B=SMOKE_BATCH, N_t=201;
-   the bond theta at (LANES, chi=25, p=5) in complex128 and complex64
-   and at the reference-scale bond (8, chi=128, p=8) in complex64;
+   the bond theta at BOND_SHAPES (the main path's (LANES, chi=25, p=5)
+   complex128 first, up to chi=200 in complex128 and p=10) and on the
+   `unbind` views of an MPS batch, with its per-call time (CUDA events) and
+   device time per launch (torch.profiler) beside the twin, the einsum
+   yardstick and the bound;
 2. checks the MPS engine's CostTests golden (L=5, d=5, chi=40, T=0.1, the
    linear ramp 2 -> 50: cost 0.375995 to 1e-5);
 3. runs `engine.cost_and_gradient` on the shipped T=2.0 problem on the
@@ -192,23 +195,79 @@ def check_sector_chain(batch: int) -> dict:
     }
 
 
-def check_bond_theta(lanes: int) -> dict:
-    """The bond-theta kernel against its twin; numpy seed 0 inputs. The
-    first shape is the MPS main path's (lanes, chi=25, p=5, complex128)."""
+def kernel_device_ms(fn, reps: int, name: str):
+    """Device milliseconds per launch of the kernels whose name holds
+    `name`, read with torch.profiler over `reps` calls of fn after one
+    warm-up: their self device time over their launches. None when the
+    profiler saw no such kernel."""
+    from torch.autograd import DeviceType
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and name in e.key]
+    count = sum(e.count for e in rows)
+    if not count:
+        return None
+    return sum(e.self_device_time_total for e in rows) / 1e3 / count
+
+
+def theta_inputs(B, chi, p, dtype, seed=0):
+    """Ai, Aj (B, chi, p, chi) and G (p^2, p^2) on the card, numpy seed."""
+    rng = np.random.default_rng(seed)
+
+    def mk(*s):
+        return torch.as_tensor(rng.standard_normal(s)
+                               + 1j * rng.standard_normal(s),
+                               dtype=dtype, device="cuda")
+    return mk(B, chi, p, chi), mk(B, chi, p, chi), mk(p * p, p * p)
+
+
+def theta_bound(B, chi, p, dtype) -> tuple:
+    """(bound_ms, bound_by) of one bond-theta call: 8 (chi^3 p^2 + p^4
+    chi^2) real operations per element; Ai, Aj and G read once, theta
+    written once."""
+    real = torch.float64 if dtype == torch.complex128 else torch.float32
+    csize = 16 if dtype == torch.complex128 else 8
+    ops = 8 * (chi ** 3 * p ** 2 + p ** 4 * chi ** 2) * B
+    nbytes = csize * (B * (2 * chi * chi * p + chi * chi * p * p) + p ** 4)
+    return bound(ops, nbytes, real)
+
+
+# (B, chi, p, dtype): the MPS main path's bond (LANES, 25, 5) complex128
+# first; a reference-scale bond (chi=128, p=8); the reference's DMRG scale
+# (chi=200, d=7) and chi=128 in its default double precision; the largest p;
+# and small ragged shapes
+BOND_SHAPES = ((LANES, 25, 5, torch.complex128),
+               (LANES, 25, 5, torch.complex64),
+               (8, 128, 8, torch.complex64), (1, 200, 8, torch.complex128),
+               (2, 128, 8, torch.complex128), (2, 24, 10, torch.complex128),
+               (3, 1, 2, torch.complex64), (2, 13, 3, torch.complex64))
+
+
+def check_bond_theta() -> dict:
+    """The bond-theta kernel against its twin at BOND_SHAPES and on the
+    `unbind` views of an MPS batch; numpy seed 0 inputs. Per shape: the
+    per-call time by CUDA events over 50 back-to-back calls (`ms`, the
+    median of five such readings), the kernel's device time per launch by
+    torch.profiler (`device_ms`), the twin, the one-einsum yardstick and
+    the bound."""
     from optimalcontrolmps_torch.ops import bond_theta as bt
 
     checks = []
-    for B, chi, p, dtype in ((lanes, 25, 5, torch.complex128),
-                             (lanes, 25, 5, torch.complex64),
-                             (8, 128, 8, torch.complex64)):
-        rng = np.random.default_rng(0)
-
-        def mk(*s):
-            return torch.as_tensor(rng.standard_normal(s)
-                                   + 1j * rng.standard_normal(s),
-                                   dtype=dtype, device="cuda")
-        Ai, Aj, G = mk(B, chi, p, chi), mk(B, chi, p, chi), mk(p * p, p * p)
-        out = bt.bond_theta(Ai, Aj, G)
+    for B, chi, p, dtype in BOND_SHAPES:
+        Ai, Aj, G = theta_inputs(B, chi, p, dtype)
+        name = str(dtype).split(".")[-1]
+        try:
+            out = bt.bond_theta(Ai, Aj, G)
+        except (RuntimeError, ValueError) as exc:
+            fail(f"bond_theta refused (B={B}, chi={chi}, p={p}, {name}): "
+                 f"{exc}")
         ref = bt.bond_theta_reference(Ai, Aj, G)
         G4 = G.reshape(p, p, p, p)
 
@@ -220,38 +279,61 @@ def check_bond_theta(lanes: int) -> dict:
         rel = abs_err / float(torch.max(torch.abs(ref)))
         lib_rel = float(torch.max(torch.abs(lib - ref))
                         / torch.max(torch.abs(ref)))
-        k_ms = cuda_ms(lambda: bt.bond_theta(Ai, Aj, G), 50)
+        # the host's enqueue bounds the small shapes' calls and swings
+        # within a run: the median of five readings of 50 calls each
+        k_ms = sorted(cuda_ms(lambda: bt.bond_theta(Ai, Aj, G), 50)
+                      for _ in range(5))[2]
+        k_dev = kernel_device_ms(lambda: bt.bond_theta(Ai, Aj, G), 50,
+                                 "bond_theta_kernel")
         p_ms = cuda_ms(lambda: bt.bond_theta_reference(Ai, Aj, G), 50)
         l_ms = cuda_ms(library, 50)
-        real = torch.float64 if dtype == torch.complex128 else torch.float32
-        csize = 16 if dtype == torch.complex128 else 8
-        ops = 8 * (chi ** 3 * p ** 2 + p ** 4 * chi ** 2) * B
-        nbytes = csize * (B * (2 * chi * chi * p + chi * chi * p * p)
-                          + p ** 4)
-        b_ms, b_by = bound(ops, nbytes, real)
-        print(f"bond_theta kernel vs twin (B={B}, chi={chi}, p={p}, "
-              f"{str(dtype).split('.')[-1]}): max|d|/max|ref| = {rel:.3e} "
-              f"(limit {THETA_TOL[dtype]:.0e}); kernel {k_ms:.4f} ms, twin "
-              f"{p_ms:.4f} ms, einsum {l_ms:.4f} ms, bound {b_ms:.4f} ms "
-              f"({b_by})")
+        b_ms, b_by = theta_bound(B, chi, p, dtype)
+        dev_txt = "not measured" if k_dev is None else f"{k_dev:.4f} ms"
+        print(f"bond_theta kernel vs twin (B={B}, chi={chi}, p={p}, {name}): "
+              f"max|d|/max|ref| = {rel:.3e} (limit {THETA_TOL[dtype]:.0e}); "
+              f"per call {k_ms:.4f} ms, device {dev_txt}, twin {p_ms:.4f} "
+              f"ms, einsum {l_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
         if not rel < THETA_TOL[dtype]:
             fail(f"bond_theta disagrees with its twin at B={B}, chi={chi}, "
                  f"p={p}, {dtype}: {rel}")
         if not lib_rel < THETA_TOL[dtype]:
             fail(f"the einsum yardstick computes another function: {lib_rel}")
-        checks.append({"B": B, "chi": chi, "p": p,
-                       "dtype": str(dtype).split(".")[-1],
+        checks.append({"B": B, "chi": chi, "p": p, "dtype": name,
                        "max_abs_err": abs_err, "rel_err": rel, "ms": k_ms,
-                       "plain_ms": p_ms, "library_ms": l_ms,
-                       "bound_ms": b_ms, "bound_by": b_by})
+                       "device_ms": k_dev, "plain_ms": p_ms,
+                       "library_ms": l_ms, "bound_ms": b_ms,
+                       "bound_by": b_by})
+
+    # the TEBD engine's inputs: `unbind` views of a (B, L, chi, p, chi)
+    # batch, batch stride L*chi*p*chi, taken without a copy
+    B, chi, p, dtype = BOND_SHAPES[0]
+    rng = np.random.default_rng(1)
+    shape = (B, 5, chi, p, chi)
+    A = torch.as_tensor(rng.standard_normal(shape)
+                        + 1j * rng.standard_normal(shape), dtype=dtype,
+                        device="cuda")
+    G = theta_inputs(1, 1, p, dtype)[2]
+    sites = A.unbind(1)
+    for i in range(4):
+        out = bt.bond_theta(sites[i], sites[i + 1], G)
+        ref = bt.bond_theta_reference(sites[i].contiguous(),
+                                      sites[i + 1].contiguous(), G)
+        rel = float(torch.max(torch.abs(out - ref))
+                    / torch.max(torch.abs(ref)))
+        if not rel < THETA_TOL[dtype]:
+            fail(f"bond_theta on unbind views (bond {i}): {rel}")
+    print(f"bond_theta on unbind views of {tuple(shape)}: 4 bonds agree "
+          f"with the twin on copies (last rel {rel:.3e})")
+
     main = checks[0]
     return {"bond_theta": {
         "name": "bond_theta", "route": "cuda", "source": BOND_SOURCE,
         "replaces": "optimalcontrolmps_tpu/ops/pallas_kernels.py:30",
         "max_abs_err": max(c["max_abs_err"] for c in checks),
-        "ms": main["ms"], "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-        "library_ms": main["library_ms"], "checks": checks}}
+        "ms": main["ms"], "device_ms": main["device_ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+        "checks": checks}}
 
 
 def check_golden() -> float:
@@ -431,7 +513,7 @@ def main() -> None:
 
     kernels = check_sector_chain(batch)
     phases.done("sector kernels vs twins")
-    kernels.update(check_bond_theta(LANES))
+    kernels.update(check_bond_theta())
     phases.done("bond_theta kernel vs twin")
     check_golden()
     phases.done("MPS golden")

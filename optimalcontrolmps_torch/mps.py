@@ -196,7 +196,9 @@ def move_right(Ai, Aj, method: str = "qr"):
     else:
         raise ValueError(f"gauge method {method!r}: the port has 'qr' and "
                          "'cholesky' ('mgs' is the JAX package's TPU route)")
-    return (q.reshape(B, chi, p, r),
+    # row-major, as every site of a batch (Householder's Q is column-major):
+    # the bond-theta kernel reads sites with contiguous inner dimensions
+    return (q.reshape(B, chi, p, r).contiguous(),
             torch.einsum('bxy,bypc->bxpc', rmat, Aj))
 
 

@@ -26,6 +26,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.c_longlong
 # library name -> {C entry point: argtypes}; every entry returns an int
 _ENTRIES = {
     "sector_chain": {
@@ -33,8 +34,8 @@ _ENTRIES = {
         "sector_chain_bwd": [_P] * 9 + [_I, _I, _F, _F, _P],
     },
     "bond_theta": {
-        "bond_theta_c64": [_P] * 4 + [_I, _I, _I, _P],
-        "bond_theta_c128": [_P] * 4 + [_I, _I, _I, _P],
+        "bond_theta_c64": [_P] * 4 + [_I] * 3 + [_LL] * 2 + [_I] * 3 + [_P],
+        "bond_theta_c128": [_P] * 4 + [_I] * 3 + [_LL] * 2 + [_I] * 3 + [_P],
     },
 }
 SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
@@ -124,5 +125,5 @@ def load_sector_chain() -> ctypes.CDLL:
 def load_bond_theta() -> ctypes.CDLL:
     """The bond-theta library, built at first use. The C entry points
     return cudaGetLastError() after their launch, or a CUDA error code for
-    a shape whose shared memory does not fit in one block."""
+    a tile plan that the kernel does not take."""
     return _load("bond_theta")

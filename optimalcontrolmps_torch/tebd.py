@@ -119,18 +119,20 @@ def _apply_bond(Ai, Aj, gate, chi, keep_left, method, renorm=True):
     passes renorm=False."""
     B, l, p, _ = Ai.shape
     _, _, q, r = Aj.shape
-    theta = bond_theta(Ai.contiguous(), Aj.contiguous(), gate)
+    theta = bond_theta(Ai, Aj, gate)
     left, right = split_truncate(theta, chi, keep_left=keep_left,
                                  method=method)
     Ai_new = left.reshape(B, l, p, chi)
     Aj_new = right.reshape(B, chi, q, r)
     if not renorm:
         return Ai_new, Aj_new
+    # the center goes on to the next bond's kernel, which reads sites with
+    # contiguous inner dimensions; a split may leave it column-major
     if keep_left:
-        return Ai_new, _scale(Aj_new, torch.linalg.vector_norm(
-            Aj_new, dim=(1, 2, 3)))
-    return _scale(Ai_new, torch.linalg.vector_norm(Ai_new, dim=(1, 2, 3))), \
-        Aj_new
+        c = Aj_new.contiguous()
+        return Ai_new, _scale(c, torch.linalg.vector_norm(c, dim=(1, 2, 3)))
+    c = Ai_new.contiguous()
+    return _scale(c, torch.linalg.vector_norm(c, dim=(1, 2, 3))), Aj_new
 
 
 def _brick_stage(T, bonds, gate, chi, method):

@@ -115,10 +115,14 @@ def _theta_inputs(B, chi, p, dtype, seed, device):
 
 
 # the MPS slice's bond (chi=25, p=5), the reference-scale bond (chi=128,
-# p=8) and a small ragged one
+# p=8), the reference's DMRG scale (chi=200, d=7) and chi=128 in complex128,
+# the largest p (10), chi=1, and small ragged ones
 @pytest.mark.parametrize("B,chi,p,dtype", [
     (4, 25, 5, torch.complex128), (4, 25, 5, torch.complex64),
-    (2, 128, 8, torch.complex64), (3, 7, 3, torch.complex128)])
+    (2, 128, 8, torch.complex64), (3, 7, 3, torch.complex128),
+    (1, 200, 8, torch.complex128), (2, 128, 8, torch.complex128),
+    (2, 24, 10, torch.complex128), (3, 1, 2, torch.complex64),
+    (2, 13, 3, torch.complex64)])
 def test_bond_theta_kernel_matches_twin(dev, B, chi, p, dtype):
     Ai, Aj, G = _theta_inputs(B, chi, p, dtype, 0, dev)
     bt.reset_counts()
@@ -129,6 +133,29 @@ def test_bond_theta_kernel_matches_twin(dev, B, chi, p, dtype):
     assert out.shape == (B, chi * p, p * chi) and out.dtype == dtype
     rel = float(torch.max(torch.abs(out - ref)) / torch.max(torch.abs(ref)))
     assert rel < THETA_TOL[dtype]
+
+
+@pytest.mark.parametrize("B,chi,p,dtype", [
+    (4, 25, 5, torch.complex128), (2, 13, 3, torch.complex64)])
+def test_bond_theta_kernel_takes_unbind_views(dev, B, chi, p, dtype):
+    """Sites of an MPS batch (B, L, chi, p, chi) as `unbind` gives them
+    (batch stride L*chi*p*chi), and a batch slice with a storage offset."""
+    rng = np.random.default_rng(2)
+    shape = (B, 4, chi, p, chi)
+    A = torch.as_tensor(rng.standard_normal(shape)
+                        + 1j * rng.standard_normal(shape), dtype=dtype,
+                        device=dev)
+    G = _theta_inputs(1, 1, p, dtype, 3, dev)[2]
+    sites = A.unbind(1)
+    bt.reset_counts()
+    for Ai, Aj in ((sites[0], sites[1]), (sites[2], sites[3]),
+                   (sites[1][1:], sites[2][1:])):
+        out = bt.bond_theta(Ai, Aj, G)
+        ref = bt.bond_theta_reference(Ai.contiguous(), Aj.contiguous(), G)
+        rel = float(torch.max(torch.abs(out - ref))
+                    / torch.max(torch.abs(ref)))
+        assert rel < THETA_TOL[dtype]
+    assert bt.bond_theta_launches == 3
 
 
 def test_bond_theta_wrapper_rejects_what_the_kernel_does_not_take(dev):
@@ -143,6 +170,20 @@ def test_bond_theta_wrapper_rejects_what_the_kernel_does_not_take(dev):
         bt.bond_theta(Ai, Aj.cpu(), G)
     with pytest.raises(RuntimeError, match="no backward"):
         bt.bond_theta(Ai.requires_grad_(True), Aj, G)
+
+
+def test_bond_theta_wrapper_rejects_a_strided_inner_layout(dev):
+    """A view whose inner dimensions are not contiguous (every other r of
+    a wider site) raises, as do lazy conjugate and negative views."""
+    Ai, Aj, G = _theta_inputs(2, 6, 3, torch.complex128, 4, dev)
+    wide = _theta_inputs(2, 6, 3, torch.complex128, 5, dev)[0].repeat(
+        1, 1, 1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        bt.bond_theta(Ai, wide[..., ::2], G)
+    with pytest.raises(ValueError, match="conjugate"):
+        bt.bond_theta(Ai, Aj.conj(), G)
+    with pytest.raises(ValueError, match="negative"):
+        bt.bond_theta(Ai, torch._neg_view(Aj), G)
 
 
 def test_tebd_step_on_the_card_matches_the_cpu(dev):

@@ -20,10 +20,22 @@ Builds the hand-written Hopper kernels of optimalcontrolmps_torch from csrc/
 4. drives the sector main path, `flagship.solve_flagship`;
 5. drives the MPS main path, `drivers.optimize_ramp.run`, on
    examples/InputFile_BHcontrolT2.0 with engine = mps, multistart =
-   LANES and maxIter = MPS_MAX_ITER (only those keys change).
+   LANES and maxIter = MPS_MAX_ITER (only those keys change);
+6. drives the interior point (`useBFGS = no`, the reference driver's
+   default): `ip_sector`, the shipped InputFile as shipped but for useBFGS,
+   against the JAX package's result (f, iterations, infidelity);
+   `ip_flagship_cold`, the flagship GROUP NLP solved cold by
+   `minimize_interior_point` with the adaptive barrier; `ip_mps`, the
+   shipped config on the MPS engine at T = MPS_IP_T for MPS_IP_MAX_ITER
+   iterations in the chunked jit mode and in `ipMode = host` (streaming
+   Hessian, hessianRowBlock = ROW_BLOCK), then a `resume = yes` run from
+   the jit run's checkpoint;
+7. drives `drivers.amoeba_opt.run` (Nelder-Mead) on the shipped config for
+   AMOEBA_MAX_ITER iterations.
 
 Each main path is driven with every launch counter set to 0 just before it
-and read just after. Exits non-zero without a CUDA device or on any failed
+and read just after; the `kernels` line sums each kernel's launches over
+the paths. Exits non-zero without a CUDA device or on any failed
 check; never falls back to the CPU. Env: SMOKE_BATCH (default 4096) sets the
 sector solve's batch.
 
@@ -62,9 +74,30 @@ GOLDEN, GOLDEN_TOL = 0.375995, 1e-5     # tests/test_cost_golden.py:66
 # read unconjugated) showed as 0.7.
 CARD_CPU_COST_TOL = 1e-12
 CARD_CPU_GRAD_TOL = 1e-8
-MPS_MAX_ITER = 3
+MPS_MAX_ITER = 1        # L-BFGS iterations of the MPS driver's lanes
 LANES = 4               # the MPS driver's multistart lanes
 NPART = 5
+# the JAX package on the CPU in float64, through its optimize_ramp.run on
+# the shipped InputFile with useBFGS = no, seed 1 (25 + 14 iterations in
+# two ipChunks), and its minimize_interior_point on the flagship GROUP NLP
+# from c = 0 with the adaptive barrier
+# (tests/test_streaming_hessian.py::test_flagship_group_cold_ip_converges_1e8)
+IP_SECTOR_F, IP_SECTOR_ITERS = 0.010181131084581343, 39
+IP_SECTOR_INFIDELITY = 8.632337886542496e-3
+IP_COLD_F, IP_COLD_ITERS = 0.004942845820563654, 15
+IP_F_TOL, IP_ITER_TOL, IP_INFIDELITY_TOL = 1e-9, 2, 1e-8
+MPS_IP_T, MPS_IP_MAX_ITER, ROW_BLOCK = 0.5, 3, 16
+# f after one step, host mode (streaming Hessian, rows stepped in blocks)
+# against the chunked jit mode (dense Hessian, rows in one batch): the same
+# arithmetic, bitwise equal on the CPU (tests/test_torch_driver.py holds the
+# two modes to 1e-10 there). On the card a row stepped in another batch
+# comes out ~1e-9 apart, at the eigh split's ~sqrt(eps) resolution, and H
+# ~1e-5 of its scale apart (tools/probe_ip_hessian.py), so one Newton step
+# later the costs read ~3e-9 apart.
+HOST_JIT_REL_TOL = 1e-8
+AMOEBA_MAX_ITER = 200
+IP_FILES = ("BHrampInitialFinal.txt", "ExpectationN.txt", "GRAPEHessian.txt",
+            "GROUPHessian.txt", "ProgressCache.txt", "checkpoint.json")
 
 # published H100 SXM peaks (NVIDIA data sheet): memory; fp32 outside the
 # tensor cores; fp64 through the tensor cores (DMMA), the card's peak for the
@@ -120,6 +153,14 @@ def reset_all_counts() -> None:
     from optimalcontrolmps_torch.ops import sector_chain as sc
     sc.reset_counts()
     bt.reset_counts()
+
+
+def launch_counts() -> dict:
+    from optimalcontrolmps_torch.ops import bond_theta as bt
+    from optimalcontrolmps_torch.ops import sector_chain as sc
+    return {"sector_chain_fwd": sc.fwd_launches,
+            "sector_chain_bwd": sc.bwd_launches,
+            "bond_theta": bt.bond_theta_launches}
 
 
 def check_sector_chain(batch: int) -> dict:
@@ -243,8 +284,15 @@ def theta_bound(B, chi, p, dtype) -> tuple:
 # first; a reference-scale bond (chi=128, p=8); the reference's DMRG scale
 # (chi=200, d=7) and chi=128 in its default double precision; the largest p;
 # and small ragged shapes
+# the interior point's MPS Hessians step their row states as one batch: up
+# to N_t - 2 rows (49 at T=0.5, 199 at the shipped T=2.0), a streaming row
+# block at a time (ROW_BLOCK asked; 10 divides N_t - 1 = 50 at T=0.5)
 BOND_SHAPES = ((LANES, 25, 5, torch.complex128),
                (LANES, 25, 5, torch.complex64),
+               (ROW_BLOCK, 25, 5, torch.complex128),
+               (10, 25, 5, torch.complex128),
+               (49, 25, 5, torch.complex128),
+               (199, 25, 5, torch.complex128),
                (8, 128, 8, torch.complex64), (1, 200, 8, torch.complex128),
                (2, 128, 8, torch.complex128), (2, 24, 10, torch.complex128),
                (3, 1, 2, torch.complex64), (2, 13, 3, torch.complex64))
@@ -484,6 +532,228 @@ def drive_mps(lanes: int) -> int:
     return launches
 
 
+def run_driver(module, cfg, tmp: str):
+    """module.run on the config written under tmp; (result, out prefix,
+    wall s)."""
+    from optimalcontrolmps_torch import config
+    path = os.path.join(tmp, "InputFile")
+    config.write_input_file(path, cfg.values)
+    prefix = os.path.join(tmp, "out_")
+    t0 = time.perf_counter()
+    out = module.run(path, seed=1, out_prefix=prefix)
+    torch.cuda.synchronize()
+    return out, prefix, time.perf_counter() - t0
+
+
+def npart_error(prefix: str, n_steps: int) -> float:
+    """max |sum_i <n_i>(t) - Npart| of ExpectationN.txt (inf if it has
+    another number of rows)."""
+    expn = np.loadtxt(prefix + "ExpectationN.txt")
+    if expn.ndim != 2 or expn.shape[0] != n_steps:
+        return float("inf")
+    return float(np.abs(expn[:, 1:].sum(axis=1) - NPART).max())
+
+
+def drive_ip_sector() -> dict:
+    """optimize_ramp.run on the shipped InputFile with useBFGS = no (engine
+    auto -> sector, double precision, optTol 1e-8, maxIter 500), seed 1."""
+    from optimalcontrolmps_torch.drivers import optimize_ramp
+
+    cfg = example_config(useBFGS="no")
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_all_counts()
+        out, prefix, wall = run_driver(optimize_ramp, cfg, tmp)
+        files = {f: os.path.exists(prefix + f) for f in IP_FILES}
+        n_err = npart_error(prefix, 201)
+    st = out["status"]
+    res = {"f": st["f"], "iterations": st["iterations"],
+           "converged": st["converged"], "kkt": st["kkt_error"],
+           "infidelity": out["infidelity"], "files": files,
+           "npart_max_err": n_err, "wall_s": wall,
+           "launches": launch_counts()}
+    print(json.dumps({"ip_sector": res}))
+    if not st["converged"]:
+        fail(f"ip_sector did not converge: kkt {st['kkt_error']}")
+    if not abs(st["f"] - IP_SECTOR_F) <= IP_F_TOL:
+        fail(f"ip_sector f = {st['f']!r}, want {IP_SECTOR_F!r}")
+    if not abs(st["iterations"] - IP_SECTOR_ITERS) <= IP_ITER_TOL:
+        fail(f"ip_sector took {st['iterations']} iterations, want "
+             f"{IP_SECTOR_ITERS} +- {IP_ITER_TOL}")
+    if not abs(out["infidelity"] - IP_SECTOR_INFIDELITY) <= IP_INFIDELITY_TOL:
+        fail(f"ip_sector infidelity {out['infidelity']!r}")
+    if not all(files.values()):
+        fail(f"ip_sector: missing output files {files}")
+    if not n_err < 1e-8:
+        fail(f"ip_sector: ExpectationN.txt off Npart by {n_err}")
+    return res
+
+
+def drive_ip_flagship_cold() -> dict:
+    """minimize_interior_point on the flagship GROUP NLP (L=5, Npart=5,
+    d=4, T=2.0, M=10, gamma=1e-6, the linsigmoid seed of rng(123456789)),
+    cold from c = 0, adaptive barrier, optTol 1e-8, on the card."""
+    from optimalcontrolmps_torch import control, sector, seeds
+    from optimalcontrolmps_torch.optimize import minimize_interior_point
+
+    dev = torch.device("cuda")
+    T, dt, M, L, d, gamma = 2.0, 0.01, 10, 5, 4, 1e-6
+    n = int(round(T / dt)) + 1
+    st = sector.make_sector_stepper(L, d, NPART, 1.0, dt, device=dev)
+    psi_i, psi_f = (sector.sector_ground_state(L, d, NPART, 1.0, u,
+                                               device=dev)
+                    for u in (2.5, 50.0))
+    basis = control.chopped_sine_basis(
+        seeds.linsigmoid_seed(2.5, 50.0, n,
+                              rng=np.random.default_rng(123456789)),
+        dt, T, M, device=dev)
+
+    def cheap(c):
+        return sector.cost(st, psi_i, psi_f, basis.convert_control(c), gamma)
+
+    def fg(c):
+        g, J = torch.func.grad_and_value(cheap)(c)
+        return J, g
+
+    def fgh(c):
+        J, g = fg(c)
+        return J, g, basis.convert_hessian(sector.hessian(
+            st, psi_i, psi_f, basis.convert_control(c), gamma))
+
+    reset_all_counts()
+    t0 = time.perf_counter()
+    r = minimize_interior_point(
+        fgh, torch.zeros(M, dtype=torch.float64, device=dev),
+        B=basis.jacobian(), u0=basis.u0, tol=1e-8, max_iter=60, fun=cheap,
+        fun_grad=fg, mu_strategy="adaptive")
+    torch.cuda.synchronize()
+    res = {"f": float(r.f), "iterations": int(r.iterations),
+           "converged": bool(r.converged), "kkt": float(r.kkt_error),
+           "wall_s": time.perf_counter() - t0, "launches": launch_counts()}
+    print(json.dumps({"ip_flagship_cold": res}))
+    if not res["converged"]:
+        fail(f"ip_flagship_cold did not converge: kkt {res['kkt']}")
+    if not abs(res["f"] - IP_COLD_F) <= IP_F_TOL:
+        fail(f"ip_flagship_cold f = {res['f']!r}, want {IP_COLD_F!r}")
+    if not abs(res["iterations"] - IP_COLD_ITERS) <= IP_ITER_TOL:
+        fail(f"ip_flagship_cold took {res['iterations']} iterations")
+    return res
+
+
+def drive_ip_mps() -> dict:
+    """optimize_ramp.run on the shipped config with engine = mps,
+    useBFGS = no, T = MPS_IP_T, maxIter = MPS_IP_MAX_ITER: in the chunked
+    jit mode, in ipMode = host, and resumed from the jit run's checkpoint
+    for one iteration."""
+    from optimalcontrolmps_torch import engine
+    from optimalcontrolmps_torch.drivers import common, optimize_ramp
+    from optimalcontrolmps_torch.ops import bond_theta as bt
+
+    base = dict(engine="mps", useBFGS="no", T=MPS_IP_T,
+                maxIter=MPS_IP_MAX_ITER)
+    p = common.build_problem(example_config(**base), engine="mps")
+
+    def cost_at(c):
+        u = p.basis.convert_control(torch.as_tensor(
+            c, dtype=torch.float64, device=p.device))
+        return float(engine.cost(p.stepper, p.psi_i, p.psi_f, u, p.gamma))
+
+    f0 = cost_at(np.zeros(p.M))
+    runs, launches = {}, 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode, extra in (("jit", {"ipMode": "jit"}),
+                            ("host", {"ipMode": "host",
+                                      "hessianRowBlock": ROW_BLOCK,
+                                      "hessianProgress": "no"})):
+            os.mkdir(os.path.join(tmp, mode))
+            reset_all_counts()
+            out, prefix, wall = run_driver(
+                optimize_ramp, example_config(**base, **extra),
+                os.path.join(tmp, mode))
+            with open(prefix + "checkpoint.json") as f:
+                ck = json.load(f)
+            st = out["status"]
+            runs[mode] = {"f": st["f"], "iterations": st["iterations"],
+                          "history": st["history"], "wall_s": wall,
+                          "bond_theta_launches": bt.bond_theta_launches,
+                          "checkpoint_keys": sorted(ck["extra"]),
+                          "npart_max_err": npart_error(prefix, p.n_steps)}
+            launches += bt.bond_theta_launches
+            if mode == "jit":
+                ck_jit, prefix_jit = ck, prefix
+        # resume from the jit run's checkpoint, one iteration
+        rdir = os.path.join(tmp, "resume")
+        os.mkdir(rdir)
+        with open(os.path.join(rdir, "out_checkpoint.json"), "w") as f:
+            json.dump(ck_jit, f)
+        reset_all_counts()
+        out, prefix, wall = run_driver(
+            optimize_ramp, example_config(**{
+                **base, "resume": "yes", "maxIter": 1,
+                "writeHessians": "no"}), rdir)
+        launches += bt.bond_theta_launches
+    start = out.get("resumed_from", {})
+    x_clip = np.clip(ck_jit["control"], -20.0 + 0.4, 20.0 - 0.4)
+    f_start = cost_at(x_clip)
+    runs["resume"] = {"f": out["status"]["f"], "wall_s": wall,
+                      "first_f": out["status"]["history"][0][1],
+                      "cost_at_clipped_checkpoint": f_start}
+    f1 = {m: runs[m]["history"][1][1] for m in ("jit", "host")}
+    rel = abs(f1["jit"] - f1["host"]) / abs(f1["jit"])
+    res = {"cost_c0": f0, "T": MPS_IP_T, "max_iter": MPS_IP_MAX_ITER,
+           "row_block": ROW_BLOCK, "f_after_iteration_1": f1,
+           "host_jit_rel": rel, "runs": runs}
+    print(json.dumps({"ip_mps": res}))
+    for mode in ("jit", "host"):
+        r = runs[mode]
+        if not r["f"] < f0:
+            fail(f"ip_mps {mode}: cost {r['f']} not below c=0's {f0}")
+        if not r["bond_theta_launches"] > 0:
+            fail(f"ip_mps {mode}: no bond_theta launch")
+        if not {"duals", "mu"} <= set(r["checkpoint_keys"]):
+            fail(f"ip_mps {mode}: final checkpoint lacks duals/mu")
+        if not r["npart_max_err"] < 1e-8:
+            fail(f"ip_mps {mode}: ExpectationN.txt off by "
+                 f"{r['npart_max_err']}")
+    if not rel <= HOST_JIT_REL_TOL:
+        fail(f"ip_mps: host and jit f after iteration 1 differ by {rel}")
+    if not (start.get("x") == ck_jit["control"]
+            and start.get("mu") == ck_jit["extra"]["mu"]
+            and start.get("duals") == ck_jit["extra"]["duals"]):
+        fail("ip_mps: the resumed run did not start from the checkpoint")
+    if not abs(runs["resume"]["first_f"] - f_start) <= 1e-12 * f_start:
+        fail(f"ip_mps: the resumed run's first f "
+             f"{runs['resume']['first_f']} is not the cost at the clipped "
+             f"checkpoint, {f_start}")
+    res["launches"] = launches
+    return res
+
+
+def drive_amoeba() -> dict:
+    """amoeba_opt.run on the shipped config (engine auto -> sector) for
+    AMOEBA_MAX_ITER iterations."""
+    from optimalcontrolmps_torch import engine
+    from optimalcontrolmps_torch.drivers import amoeba_opt, common
+    from optimalcontrolmps_torch.optimize.penalty import bound_penalty
+
+    cfg = example_config(maxIter=AMOEBA_MAX_ITER)
+    p = common.build_problem(cfg, engine="auto")
+    u0 = p.basis.convert_control(torch.zeros(p.M, dtype=torch.float64,
+                                             device=p.device))
+    from optimalcontrolmps_torch.backends import engine_for
+    f0 = float(engine_for(p.stepper).cost(p.stepper, p.psi_i, p.psi_f, u0,
+                                          p.gamma) + bound_penalty(u0))
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_all_counts()
+        out, _, wall = run_driver(amoeba_opt, cfg, tmp)
+    res = {"engine": p.kind, "cost_c0": f0, "f": out["f"],
+           "iterations": out["iterations"], "n_evals": out["n_evals"],
+           "wall_s": wall, "launches": launch_counts()}
+    print(json.dumps({"amoeba": res}))
+    if not out["f"] < f0:
+        fail(f"amoeba: f {out['f']} not below c=0's {f0}")
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False; this script needs a GPU")
@@ -527,6 +797,15 @@ def main() -> None:
 
     kernels["bond_theta"]["launches"] = drive_mps(LANES)
     phases.done("MPS main path (optimize_ramp.run, engine = mps)")
+
+    drive_ip_sector()
+    phases.done("ip_sector (optimize_ramp.run, useBFGS = no)")
+    drive_ip_flagship_cold()
+    phases.done("ip_flagship_cold (minimize_interior_point)")
+    kernels["bond_theta"]["launches"] += drive_ip_mps()["launches"]
+    phases.done("ip_mps (optimize_ramp.run, engine = mps, jit/host/resume)")
+    drive_amoeba()
+    phases.done("amoeba (amoeba_opt.run)")
 
     print(json.dumps({"kernels": [kernels[k] for k in (
         "sector_chain_fwd", "sector_chain_bwd", "bond_theta")]}))

@@ -9,6 +9,10 @@ Device: the run is on the card unless the config asks for the CPU with
 `backend = cpu` (or the caller passes `device`). `precision = double`
 (the default) runs complex128 on either; the JAX package's redirect of
 double precision to the CPU was a TPU workaround.
+
+State cache: `build_problem(state_cache=path)` loads the boundary ground
+states from an npz when its problem fingerprint matches, else computes and
+saves them (the JAX package's format and fingerprint).
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch
 
 from .. import control as controllib
 from .. import groundstate, sector, seeds, tebd
+from .. import io as iolib
 from ..backends import sector_fits
 from ..config import InputGroup
 from ..device import resolve_device
@@ -75,10 +80,13 @@ def effective_chi(max_bond_dim: int, L: int, p: int) -> int:
 
 
 def build_problem(cfg: InputGroup, seed: int = 1, dtype=None, u0=None,
-                  engine: str = "mps", device=None) -> ProblemSetup:
+                  engine: str = "mps", device=None,
+                  state_cache: str = None) -> ProblemSetup:
     """engine: "mps" (the reference's snake TEBD), "sector" (fixed-N dense
     engine) or "auto" (sector when it fits and the MPS path would be
-    truncation-free, else mps). device=None: the config's `backend`."""
+    truncation-free, else mps). device=None: the config's `backend`.
+    state_cache: optional npz path of the boundary states, loaded when its
+    fingerprint matches this problem, else written after they are made."""
     device = config_device(cfg) if device is None else torch.device(device)
     tstep = cfg.get_real("tstep", 1e-2)
     T = cfg.get_real("T")
@@ -112,24 +120,39 @@ def build_problem(cfg: InputGroup, seed: int = 1, dtype=None, u0=None,
         print(f"NOTE: engine=sector is exact (chi = sector dim); "
               f"maxBondDim={max_bond} (effective chi={chi}) is superseded "
               f"and no truncation occurs.")
+    trunc = cfg.get_string("truncMethod", "eigh")
+    state_meta = {"L": L, "d": d, "npart": npart, "chi": chi,
+                  "engine": engine, "trunc": trunc,
+                  "u_ends": [float(u0[0]), float(u0[-1])],
+                  "dtype": str(dtype).removeprefix("torch.")}
+    cached = (iolib.load_states(state_cache, state_meta)
+              if state_cache else None)
     if engine == "sector":
         stepper = sector.make_sector_stepper(L, d, npart, J_HOP, tstep,
                                              dtype=dtype, device=device)
-        psi_i, psi_f = (sector.sector_ground_state(
-            L, d, npart, J_HOP, float(u), dtype=dtype, device=device)
-            for u in (u0[0], u0[-1]))
+
+        def ground(u):
+            return sector.sector_ground_state(L, d, npart, J_HOP, u,
+                                              dtype=dtype, device=device)
     elif engine == "mps":
-        stepper = tebd.make_stepper(
-            L, d, J_HOP, tstep, chi, dtype=dtype, device=device,
-            trunc_method=cfg.get_string("truncMethod", "eigh"))
-        psi_i, psi_f = (groundstate.initialize_state(
-            L, d, npart, J_HOP, float(u), chi, dtype=dtype, device=device)
-            for u in (u0[0], u0[-1]))
+        stepper = tebd.make_stepper(L, d, J_HOP, tstep, chi, dtype=dtype,
+                                    device=device, trunc_method=trunc)
+
+        def ground(u):
+            return groundstate.initialize_state(L, d, npart, J_HOP, u, chi,
+                                                dtype=dtype, device=device)
     elif engine == "vidal":
         raise NotImplementedError("engine = vidal: the Vidal engine is not "
                                   "ported yet (ROADMAP Queue 1 item 12)")
     else:
         raise ValueError(f"unknown engine {engine!r}")
+    if cached is not None:
+        psi_i, psi_f = (torch.as_tensor(a, dtype=dtype, device=device)
+                        for a in cached)
+    else:
+        psi_i, psi_f = ground(float(u0[0])), ground(float(u0[-1]))
+        if state_cache:
+            iolib.save_states(state_cache, psi_i, psi_f, state_meta)
     return ProblemSetup(cfg=cfg, L=L, npart=npart, d=d, T=T, tstep=tstep,
                         n_steps=n_steps, M=M, gamma=gamma, chi=chi,
                         threshold=threshold, stepper=stepper, psi_i=psi_i,

@@ -14,6 +14,10 @@ together, one bond update per bond for the whole batch.
     g_i  = dt Re(<xi_i| dH/du |psi_i> <psi(T)|psi_target> 1j) + reg
     H    : exact row propagation (every row state stepped as one batch)
 
+`gradient_segmented` and `hessian_streaming` give the same gradient and
+Hessian with few states in flight (streaming.py), for the host-mode
+interior point.
+
 The regularization helpers act on the last axis, so they serve a (B, N)
 batch as well as one (N,) control.
 """
@@ -24,13 +28,15 @@ import torch
 
 from . import mps as mpslib
 from .device import resolve_device
-from .streaming import rollout_measure
+from .streaming import (BlockHessian, assemble_hessian, pick_row_block,
+                        rollout_measure, segmented_adjoint_gradient)
 from .tebd import TEBDStepper, tebd_step
 
 __all__ = [
     "rollout", "rollout_final", "costate_rollout", "cost", "fidelities",
     "fidelities_streaming", "gradient", "gradient_lowmem",
-    "cost_and_gradient", "hessian", "regularization", "regularization_grad",
+    "gradient_segmented", "cost_and_gradient", "hessian",
+    "hessian_streaming", "regularization", "regularization_grad",
     "regularization_hessian",
 ]
 
@@ -267,15 +273,60 @@ def hessian(st: TEBDStepper, psi0, psi_target, u, gamma, aux=None):
         ovm[j, 1:j] = _overlap_with(xiH[j], act)  # <xiH_j|psiH_i(t_j)>
 
     diag_ov = mpslib.overlap(xiH, rows)
-    Hd = (ov * diag_ov * xiH_norm * row_norm).real - (divT * divT.conj()).real
-    val1 = (ov * ovm * xiH_norm[:, None] * row_norm[None, :]).real
-    val2 = -(divT[None, :] * divT.conj()[:, None]).real
-    idx = torch.arange(n, device=rows.device)
-    jj, ii = idx[:, None], idx[None, :]
-    mask = (ii >= 1) & (jj > ii) & (jj <= n - 2)
-    Hoff = torch.where(mask, val1 + val2, torch.zeros_like(val1))
-    interior = (idx >= 1) & (idx <= n - 2)
-    H = Hoff + Hoff.T + torch.diag(torch.where(interior, Hd,
-                                               torch.zeros_like(Hd)))
-    return H * dt * dt + regularization_hessian(n, gamma, dt, dtype=H.dtype,
-                                                device=H.device)
+    return assemble_hessian(ovm, row_norm, xiH_norm, diag_ov, divT, ov, dt,
+                            regularization_hessian(n, gamma, dt,
+                                                   dtype=row_norm.dtype,
+                                                   device=rows.device))
+
+
+# ---------------------------------------------------------------------------
+# streaming: segmented gradient, block Hessian
+# ---------------------------------------------------------------------------
+
+def _step_fwd(st):
+    return lambda s, a, b: tebd_step(st, s, a, b, forward=True)
+
+
+def gradient_segmented(st: TEBDStepper, psi0, psi_target, u, gamma,
+                       seg=None):
+    """`gradient` with O(sqrt(N_t)) states in memory: the forward sweep
+    keeps segment-start checkpoints and the backward sweep re-propagates
+    one segment at a time (streaming.segmented_adjoint_gradient); the same
+    values for one more forward rollout. Returns (g, (psiT, divT, ov))."""
+    A, U, batched = _lanes(psi0, u)
+    X = _lanes(psi_target, u)[0]
+    half = 0.5 * st.nn1
+    g, aux = segmented_adjoint_gradient(
+        _step_fwd(st),
+        lambda x, ui, uim1: tebd_step(st, x, ui, uim1, forward=False),
+        lambda x, p: mpslib.sandwich_site_sum(x, p, half),
+        mpslib.overlap,
+        lambda uu: regularization_grad(uu, gamma, st.dt),
+        A, X, U, st.dt, seg=seg)
+    return _out(g, batched), tuple(_out(x, batched) for x in aux)
+
+
+def hessian_streaming(st: TEBDStepper, psi0, psi_target, u, gamma,
+                      aux=None, row_block: int = 64, progress=None):
+    """`hessian` for one control u (N_t,) with O(row_block) row states in
+    flight (streaming.BlockHessian); the same values. aux: (psiT, divT, ov)
+    from gradient_segmented, recomputed when None. progress(c, s) is called
+    after each block. The BlockHessian is built per call: it holds no
+    compiled program, so there is nothing to cache."""
+    n = u.shape[0]
+    if aux is None:
+        _, aux = gradient_segmented(st, psi0, psi_target, u, gamma)
+    _, divT, ov = aux
+    half = 0.5 * st.nn1
+    bh = BlockHessian(
+        n, pick_row_block(n - 1, row_block), fwd=_step_fwd(st),
+        bwd=lambda s, a, b: tebd_step(st, s, a, b, forward=False),
+        apply_dh=lambda A: mpslib.apply_site_sum_diag(
+            A, half, method=st.trunc_method),
+        row_step=_step_fwd(st), overlap=mpslib.overlap)
+    ovm, row_norm, xih_norm, diag_ov = bh.ov_data(
+        psi0[None], psi_target[None], u, progress=progress)
+    return assemble_hessian(ovm, row_norm, xih_norm, diag_ov, divT, ov,
+                            st.dt, regularization_hessian(
+                                n, gamma, st.dt, dtype=row_norm.dtype,
+                                device=row_norm.device))

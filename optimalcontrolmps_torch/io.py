@@ -3,7 +3,9 @@
 Counterpart of optimalcontrolmps_tpu/io.py (host numpy and json, copied so
 the port imports nothing of the JAX package): the ramp, progress,
 expectation and matrix text files, tab-separated like the reference's, and
-the JSON checkpoint of the control vector.
+the JSON checkpoint of the control vector and the boundary-state cache,
+all in the JAX package's formats, so a checkpoint or a state cache written
+by one package is read by the other.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ import numpy as np
 __all__ = [
     "write_ramp_file", "read_ramp_file", "append_progress",
     "nprop_per_iteration", "write_expectation_file", "write_matrix",
-    "save_checkpoint",
+    "read_matrix", "save_checkpoint", "load_checkpoint", "save_states",
+    "load_states",
 ]
 
 
@@ -70,6 +73,10 @@ def write_matrix(path, M):
             f.write("\t".join(_fmt(v) for v in row) + "\t\n")
 
 
+def read_matrix(path):
+    return np.loadtxt(path)
+
+
 def save_checkpoint(path, control, extra=None):
     """Atomic JSON checkpoint of the control vector and metadata."""
     tmp = path + ".tmp"
@@ -77,3 +84,41 @@ def save_checkpoint(path, control, extra=None):
         json.dump({"control": np.asarray(control).tolist(),
                    "extra": extra or {}}, f)
     os.replace(tmp, path)
+
+
+def load_checkpoint(path):
+    """(control as numpy, extra dict) of a save_checkpoint file."""
+    with open(path) as f:
+        payload = json.load(f)
+    return np.asarray(payload["control"]), payload.get("extra", {})
+
+
+def _meta_key(meta: dict):
+    return json.loads(json.dumps(meta, sort_keys=True))
+
+
+def save_states(path, psi_i, psi_f, meta: dict):
+    """Atomic npz of the boundary states (MPS (L, chi, p, chi) or sector
+    (ns,) arrays, numpy or tensors on any device) with a JSON fingerprint
+    of the problem, `meta`, that load_states checks."""
+    arrays = {name: (s.cpu().numpy() if hasattr(s, "cpu") else
+                     np.asarray(s))
+              for name, s in (("psi_i", psi_i), ("psi_f", psi_f))}
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, __meta__=json.dumps(meta, sort_keys=True), **arrays)
+    os.replace(tmp, path)
+
+
+def load_states(path, meta: dict):
+    """(psi_i, psi_f) as numpy arrays from a save_states npz, or None when
+    the file is absent or its fingerprint differs from `meta`: a stale
+    cache must never feed other physics."""
+    if not os.path.exists(path):
+        return None
+    with np.load(path, allow_pickle=False) as z:
+        if json.loads(str(z["__meta__"])) != _meta_key(meta):
+            return None
+        if not {"psi_i", "psi_f"} <= set(z.files):
+            raise ValueError(f"{path}: not a plain-MPS or sector state cache "
+                             f"(Vidal states are not ported)")
+        return z["psi_i"], z["psi_f"]

@@ -24,6 +24,7 @@ import torch
 from .engine import (regularization, regularization_grad,
                      regularization_hessian)
 from .groundstate import sector_basis, sector_ground_vector
+from .streaming import assemble_hessian
 from .ops.gates import j_gate
 from .device import resolve_device
 
@@ -392,22 +393,11 @@ def hessian(st: SectorStepper, psi0, psi_target, u, gamma):
         ov_rows.append(states @ xiH[j].conj())  # <xiH_j | psiH_i(t_j)>
 
     diag_ov = torch.sum(xiH.conj() * rows0, dim=1)
-    Hd = (ov * diag_ov * xiH_norm * row_norm).real - (divT * divT.conj()).real
-
-    ovm = torch.zeros((n, n), dtype=states.dtype, device=u.device)
-    ovm[1:n - 1, :] = torch.stack(ov_rows)  # ovm[j, i]
-    val1 = (ov * ovm * xiH_norm[:, None] * row_norm[None, :]).real
-    val2 = -(divT[None, :] * divT.conj()[:, None]).real
-    Hoff = val1 + val2
-
-    jj = idx[:, None]
-    ii = idx[None, :]
-    mask = (ii >= 1) & (jj > ii) & (jj <= n - 2)
-    Hoff = torch.where(mask, Hoff, torch.zeros_like(Hoff))
-
-    H = Hoff + Hoff.T
-    interior = (idx >= 1) & (idx <= n - 2)
-    H = H + torch.diag(torch.where(interior, Hd, torch.zeros_like(Hd)))
-    H = H * dt * dt
-    return H + regularization_hessian(n, gamma, dt, dtype=H.dtype,
-                                      device=H.device)
+    # ovm[j, i]; rows 0 and n-1 are masked out (built out of place, so the
+    # Hessian can be vmapped over controls)
+    zero = torch.zeros((1, n), dtype=states.dtype, device=u.device)
+    ovm = torch.cat([zero, torch.stack(ov_rows), zero])
+    return assemble_hessian(ovm, row_norm, xiH_norm, diag_ov, divT, ov, dt,
+                            regularization_hessian(n, gamma, dt,
+                                                   dtype=row_norm.dtype,
+                                                   device=u.device))

@@ -42,3 +42,22 @@ def test_importing_every_module_loads_no_jax():
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
+
+
+@pytest.mark.parametrize("module", [
+    "optimalcontrolmps_torch/optimize/interior_point.py",
+    "optimalcontrolmps_torch/optimize/nelder_mead.py",
+    "optimalcontrolmps_torch/streaming.py",
+    "optimalcontrolmps_torch/drivers/amoeba_opt.py",
+])
+def test_the_slice_modules_are_checked(module):
+    """The interior point, Nelder-Mead, the streaming Hessian and the
+    AmoebaOpt driver are among the files checked above."""
+    assert module in FILES
+
+
+def test_entry_points_print_usage_without_arguments(capsys):
+    from optimalcontrolmps_torch.drivers import amoeba_opt, optimize_ramp
+    for mod in (optimize_ramp, amoeba_opt):
+        assert mod.main([]) == 0
+        assert "Usage" in capsys.readouterr().out

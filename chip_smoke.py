@@ -31,7 +31,19 @@ Builds the hand-written Hopper kernels of optimalcontrolmps_torch from csrc/
    Hessian, hessianRowBlock = ROW_BLOCK), then a `resume = yes` run from
    the jit run's checkpoint;
 7. drives `drivers.amoeba_opt.run` (Nelder-Mead) on the shipped config for
-   AMOEBA_MAX_ITER iterations.
+   AMOEBA_MAX_ITER iterations;
+8. `vidal_exact`: the Vidal engine on the shipped config (chi = 25, no
+   truncation): its cost and gradient against the MPS engine's on the
+   card, the bond theta on its stages' stacked inputs, the step's time,
+   then optimize_ramp.run with engine = vidal, ipMode = host at ip_mps's
+   cut, against ip_mps's host run after one iteration;
+9. `dmrg_exact`: dmrg_ground_state at L=5 against exact diagonalization;
+10. `vidal_scaled`: optimize_ramp.run on SCALED_CONFIG, the JAX package's
+   reference-scale run (N=20, d=7, chi=128, complex64), cut to one
+   host-mode iteration at T = SCALED_T: both boundary states by DMRG on the
+   card, gated on their sweep energies and particle number; then the bond
+   theta on its stages' inputs, the step's time and the SVD's share of a
+   DMRG sweep.
 
 Each main path is driven with every launch counter set to 0 just before it
 and read just after; the `kernels` line sums each kernel's launches over
@@ -96,6 +108,29 @@ MPS_IP_T, MPS_IP_MAX_ITER, ROW_BLOCK = 0.5, 3, 16
 # later the costs read ~3e-9 apart.
 HOST_JIT_REL_TOL = 1e-8
 AMOEBA_MAX_ITER = 200
+# a multistart lane's coefficients: numpy seed 0, sigma 0.5
+C_RAND = np.random.default_rng(0).normal(0.0, 0.5, 10)
+# the Vidal engine against the MPS engine without truncation (chi = 25 is
+# the exact rank bound of L=5, d=4): cost and gradient to 1e-8
+# (tests/test_vidal.py:102-110); f after one interior-point step to 1e-6
+# relative, the level at which the two engines' Hessians agree
+# (tests/test_vidal.py:229-241)
+VIDAL_MPS_TOL, VIDAL_IP_REL_TOL = 1e-8, 1e-6
+# DMRG against the exact sector ground state (tests/test_dmrg.py:23-27)
+DMRG_E_TOL, DMRG_OVERLAP_TOL = 1e-9, 1e-8
+# the JAX package's only reference-scale run, cut to fit: its keys as
+# shipped but truncMethod (the port has eigh, not the TPU's nssub), T (N_t
+# = 11 of its 301), maxIter and stateCache (the run makes both boundary
+# states by DMRG); SCALED_N is the chain's length (the config's N = 20)
+SCALED_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "artifacts", "baseline3",
+                             "InputFile_BHcontrolT6.0")
+SCALED_T, SCALED_N = 0.2, 20
+# the reference scale's gates: DMRG sweep energies may rise by 1e-6 |E|
+# (DMRG searches in complex128, then hands over complex64 states), the
+# particle number of the states and of ExpectationN.txt (complex64) is held
+# to 1e-4
+SCALED_E_RISE, SCALED_NPART_TOL = 1e-6, 1e-4
 IP_FILES = ("BHrampInitialFinal.txt", "ExpectationN.txt", "GRAPEHessian.txt",
             "GROUPHessian.txt", "ProgressCache.txt", "checkpoint.json")
 
@@ -298,59 +333,67 @@ BOND_SHAPES = ((LANES, 25, 5, torch.complex128),
                (3, 1, 2, torch.complex64), (2, 13, 3, torch.complex64))
 
 
-def check_bond_theta() -> dict:
-    """The bond-theta kernel against its twin at BOND_SHAPES and on the
-    `unbind` views of an MPS batch; numpy seed 0 inputs. Per shape: the
+def theta_reading(Ai, Aj, G, label: str = "") -> dict:
+    """The bond-theta kernel against its twin on the card inputs Ai, Aj
+    (B, chi, p, chi) and G: the relative error (fails above THETA_TOL), the
     per-call time by CUDA events over 50 back-to-back calls (`ms`, the
     median of five such readings), the kernel's device time per launch by
     torch.profiler (`device_ms`), the twin, the one-einsum yardstick and
     the bound."""
     from optimalcontrolmps_torch.ops import bond_theta as bt
 
-    checks = []
-    for B, chi, p, dtype in BOND_SHAPES:
-        Ai, Aj, G = theta_inputs(B, chi, p, dtype)
-        name = str(dtype).split(".")[-1]
-        try:
-            out = bt.bond_theta(Ai, Aj, G)
-        except (RuntimeError, ValueError) as exc:
-            fail(f"bond_theta refused (B={B}, chi={chi}, p={p}, {name}): "
-                 f"{exc}")
-        ref = bt.bond_theta_reference(Ai, Aj, G)
-        G4 = G.reshape(p, p, p, p)
+    B, chi, p, _ = Ai.shape
+    dtype = Ai.dtype
+    name = str(dtype).split(".")[-1]
+    try:
+        out = bt.bond_theta(Ai, Aj, G)
+    except (RuntimeError, ValueError) as exc:
+        fail(f"bond_theta refused (B={B}, chi={chi}, p={p}, {name}): {exc}")
+    ref = bt.bond_theta_reference(Ai, Aj, G)
+    G4 = G.reshape(p, p, p, p)
 
-        def library():
-            return torch.einsum('PQpq,bapc,bcqd->baPQd', G4, Ai, Aj)
-        lib = library().reshape(B, chi * p, p * chi)
-        torch.cuda.synchronize()
-        abs_err = float(torch.max(torch.abs(out - ref)))
-        rel = abs_err / float(torch.max(torch.abs(ref)))
-        lib_rel = float(torch.max(torch.abs(lib - ref))
-                        / torch.max(torch.abs(ref)))
-        # the host's enqueue bounds the small shapes' calls and swings
-        # within a run: the median of five readings of 50 calls each
-        k_ms = sorted(cuda_ms(lambda: bt.bond_theta(Ai, Aj, G), 50)
-                      for _ in range(5))[2]
-        k_dev = kernel_device_ms(lambda: bt.bond_theta(Ai, Aj, G), 50,
-                                 "bond_theta_kernel")
-        p_ms = cuda_ms(lambda: bt.bond_theta_reference(Ai, Aj, G), 50)
-        l_ms = cuda_ms(library, 50)
-        b_ms, b_by = theta_bound(B, chi, p, dtype)
-        dev_txt = "not measured" if k_dev is None else f"{k_dev:.4f} ms"
-        print(f"bond_theta kernel vs twin (B={B}, chi={chi}, p={p}, {name}): "
-              f"max|d|/max|ref| = {rel:.3e} (limit {THETA_TOL[dtype]:.0e}); "
-              f"per call {k_ms:.4f} ms, device {dev_txt}, twin {p_ms:.4f} "
-              f"ms, einsum {l_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
-        if not rel < THETA_TOL[dtype]:
-            fail(f"bond_theta disagrees with its twin at B={B}, chi={chi}, "
-                 f"p={p}, {dtype}: {rel}")
-        if not lib_rel < THETA_TOL[dtype]:
-            fail(f"the einsum yardstick computes another function: {lib_rel}")
-        checks.append({"B": B, "chi": chi, "p": p, "dtype": name,
-                       "max_abs_err": abs_err, "rel_err": rel, "ms": k_ms,
-                       "device_ms": k_dev, "plain_ms": p_ms,
-                       "library_ms": l_ms, "bound_ms": b_ms,
-                       "bound_by": b_by})
+    def library():
+        return torch.einsum('PQpq,bapc,bcqd->baPQd', G4, Ai, Aj)
+    lib = library().reshape(B, chi * p, p * chi)
+    torch.cuda.synchronize()
+    abs_err = float(torch.max(torch.abs(out - ref)))
+    rel = abs_err / float(torch.max(torch.abs(ref)))
+    lib_rel = float(torch.max(torch.abs(lib - ref))
+                    / torch.max(torch.abs(ref)))
+    # the host's enqueue bounds the small shapes' calls and swings within
+    # a run: the median of five readings of 50 calls each
+    k_ms = sorted(cuda_ms(lambda: bt.bond_theta(Ai, Aj, G), 50)
+                  for _ in range(5))[2]
+    k_dev = kernel_device_ms(lambda: bt.bond_theta(Ai, Aj, G), 50,
+                             "bond_theta_kernel")
+    p_ms = cuda_ms(lambda: bt.bond_theta_reference(Ai, Aj, G), 50)
+    l_ms = cuda_ms(library, 50)
+    b_ms, b_by = theta_bound(B, chi, p, dtype)
+    dev_txt = "not measured" if k_dev is None else f"{k_dev:.4f} ms"
+    print(f"bond_theta kernel vs twin {label}(B={B}, chi={chi}, p={p}, "
+          f"{name}): max|d|/max|ref| = {rel:.3e} (limit "
+          f"{THETA_TOL[dtype]:.0e}); per call {k_ms:.4f} ms, device "
+          f"{dev_txt}, twin {p_ms:.4f} ms, einsum {l_ms:.4f} ms, bound "
+          f"{b_ms:.5f} ms ({b_by})")
+    if not rel < THETA_TOL[dtype]:
+        fail(f"bond_theta disagrees with its twin at B={B}, chi={chi}, "
+             f"p={p}, {dtype}: {rel}")
+    if not lib_rel < THETA_TOL[dtype]:
+        fail(f"the einsum yardstick computes another function: {lib_rel}")
+    return {"B": B, "chi": chi, "p": p, "dtype": name,
+            "inputs": label.strip() or "random",
+            "max_abs_err": abs_err, "rel_err": rel, "ms": k_ms,
+            "device_ms": k_dev, "plain_ms": p_ms, "library_ms": l_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def check_bond_theta() -> dict:
+    """The bond-theta kernel against its twin at BOND_SHAPES (numpy seed 0
+    inputs, `theta_reading`) and on the `unbind` views of an MPS batch."""
+    from optimalcontrolmps_torch.ops import bond_theta as bt
+
+    checks = [theta_reading(*theta_inputs(B, chi, p, dtype))
+              for B, chi, p, dtype in BOND_SHAPES]
 
     # the TEBD engine's inputs: `unbind` views of a (B, L, chi, p, chi)
     # batch, batch stride L*chi*p*chi, taken without a copy
@@ -411,18 +454,17 @@ def example_config(**changes):
     return cfg
 
 
-def check_card_vs_cpu() -> dict:
+def check_card_vs_cpu() -> tuple:
     """engine.cost_and_gradient on the shipped problem (L=5, d=4, chi=25,
-    N_t=201, complex128), on the card and on the CPU: at c=0 and at a random
-    c (numpy seed 0, sigma 0.5, as a multistart lane) with the driver's eigh
-    split, and at c=0 with the svd split."""
+    N_t=201, complex128), on the card and on the CPU: at c=0 and at C_RAND
+    (as a multistart lane) with the driver's eigh split, and at c=0 with the
+    svd split. Returns (readings, the card's (J, g) by label)."""
     from optimalcontrolmps_torch import engine
     from optimalcontrolmps_torch.drivers import common
 
-    c_rand = np.random.default_rng(0).normal(0.0, 0.5, 10)
-    readings = {}
+    readings, card = {}, {}
     for label, method, c in (("c=0 eigh", "eigh", np.zeros(10)),
-                             ("random c eigh", "eigh", c_rand),
+                             ("random c eigh", "eigh", C_RAND),
                              ("c=0 svd", "svd", np.zeros(10))):
         cfg = example_config(engine="mps", truncMethod=method)
         res = {}
@@ -446,8 +488,9 @@ def check_card_vs_cpu() -> dict:
                  f"dg {g_rel}")
         readings[label] = {"J": Jc, "dJ": abs(Jc - Jh), "g_rel": g_rel,
                            "card_s": tc, "cpu_s": th}
+        card[label] = (Jc, gc)
     print(json.dumps({"card_vs_cpu": readings}))
-    return readings
+    return readings, card
 
 
 def drive_sector(batch: int, kind: str, smi: str) -> dict:
@@ -754,6 +797,288 @@ def drive_amoeba() -> dict:
     return res
 
 
+def vidal_lanes(state, lanes: int):
+    """A one-state VidalState repeated into a batch of `lanes`."""
+    from optimalcontrolmps_torch import vidal
+    return vidal.VidalState(
+        state.B[None].repeat(lanes, 1, 1, 1, 1).contiguous(),
+        state.lam[None].repeat(lanes, 1, 1).contiguous())
+
+
+def stage_inputs(S, bonds):
+    """The bond-theta inputs of one Vidal stage: the sites of `bonds` of
+    every lane, stacked bond-major as vidal._stage stacks them."""
+    return (torch.cat([S.B[:, b] for b in bonds]),
+            torch.cat([S.B[:, b + 1] for b in bonds]))
+
+
+def vidal_stage_thetas(st, state, lanes: int, label: str) -> list:
+    """The kernel against its twin on both stages' stacked inputs of a
+    `lanes` batch of `state` (`theta_reading`)."""
+    S = vidal_lanes(state, lanes)
+    return [theta_reading(*stage_inputs(S, range(first, st.L - 1, 2)),
+                          st.gate_fwd, f"{label} {kind} stage ")
+            for first, kind in ((0, "even"), (1, "odd"))]
+
+
+def vidal_step_reading(st, state, lanes: int, reps: int) -> dict:
+    """ms of one vidal_step of a `lanes` batch (CUDA events, mean of reps
+    after a warm-up) and the ms of its two stages' batched eighs alone
+    (their density matrices rebuilt from the stage inputs): eigh's share."""
+    from optimalcontrolmps_torch import vidal
+    from optimalcontrolmps_torch.ops.bond_theta import bond_theta
+    from optimalcontrolmps_torch.ops.trunc import _jitter
+
+    S = vidal_lanes(state, lanes)
+    u = torch.full((lanes,), 10.0, dtype=state.lam.dtype,
+                   device=state.B.device)
+    step_ms = cuda_ms(lambda: vidal.vidal_step(st, S, u, u), reps)
+    eigh_ms = 0.0
+    for first in (0, 1):
+        th = bond_theta(*stage_inputs(S, range(first, st.L - 1, 2)),
+                        st.gate_fwd)
+        rho = _jitter(th.conj().transpose(-2, -1) @ th)
+        eigh_ms += cuda_ms(lambda: torch.linalg.eigh(rho), reps)
+    out = {"lanes": lanes, "L": st.L, "chi": st.chi, "p": st.p,
+           "dtype": str(state.B.dtype).split(".")[-1], "step_ms": step_ms,
+           "eigh_ms": eigh_ms, "eigh_share": eigh_ms / step_ms}
+    print(f"vidal_step (lanes={lanes}, L={st.L}, chi={st.chi}, p={st.p}, "
+          f"{out['dtype']}): {step_ms:.3f} ms, of which the two stages' "
+          f"eigh {eigh_ms:.3f} ms ({100 * out['eigh_share']:.1f}%)")
+    return out
+
+
+def drive_vidal_exact(mps_card: dict, ip_mps_f1: float) -> dict:
+    """The Vidal engine on the shipped problem (L=5, d=4, chi=25 = the exact
+    rank bound, complex128): cost and gradient at c=0 and C_RAND against the
+    MPS engine's on the card (`mps_card`, from check_card_vs_cpu); the
+    bond theta on its stage inputs at one lane and LANES lanes; the step's
+    time; then optimize_ramp.run with engine = vidal, useBFGS = no,
+    ipMode = host, ip_mps's cut (T = MPS_IP_T, maxIter = MPS_IP_MAX_ITER,
+    hessianRowBlock = ROW_BLOCK), its f after one iteration against
+    ip_mps's host mode (`ip_mps_f1`)."""
+    from optimalcontrolmps_torch import vidal
+    from optimalcontrolmps_torch.drivers import common, optimize_ramp
+    from optimalcontrolmps_torch.ops import bond_theta as bt
+
+    p = common.build_problem(example_config(engine="vidal"), engine="vidal")
+    agree = {}
+    for label, c in (("c=0 eigh", np.zeros(10)), ("random c eigh", C_RAND)):
+        u = p.basis.convert_control(torch.as_tensor(c, device=p.device))
+        t0 = time.perf_counter()
+        J, g = vidal.cost_and_gradient(p.stepper, p.psi_i, p.psi_f, u,
+                                       p.gamma)
+        J = float(J)
+        wall = time.perf_counter() - t0
+        Jm, gm = mps_card[label]
+        dg = float(torch.max(torch.abs(g.cpu() - gm)))
+        agree[label] = {"J": J, "dJ": abs(J - Jm), "dg": dg, "s": wall}
+        print(f"vidal vs mps engine on the card at {label}: J {J:.12f} "
+              f"(|dJ| {abs(J - Jm):.2e}), max|dg| {dg:.2e} (limit "
+              f"{VIDAL_MPS_TOL:.0e}); {wall:.2f} s")
+        if not (abs(J - Jm) < VIDAL_MPS_TOL and dg < VIDAL_MPS_TOL):
+            fail(f"vidal and mps engines disagree at {label}: dJ "
+                 f"{abs(J - Jm)}, dg {dg}")
+    thetas = (vidal_stage_thetas(p.stepper, p.psi_i, 1, "vidal_exact")
+              + vidal_stage_thetas(p.stepper, p.psi_i, LANES, "vidal_exact"))
+    steps = [vidal_step_reading(p.stepper, p.psi_i, b, 10)
+             for b in (1, LANES)]
+
+    cfg = example_config(engine="vidal", useBFGS="no", T=MPS_IP_T,
+                         maxIter=MPS_IP_MAX_ITER, ipMode="host",
+                         hessianRowBlock=ROW_BLOCK, hessianProgress="no")
+    p = common.build_problem(cfg, engine="vidal")
+    f0 = float(vidal.cost(p.stepper, p.psi_i, p.psi_f,
+                          p.basis.convert_control(torch.zeros(
+                              p.M, dtype=torch.float64, device=p.device)),
+                          p.gamma))
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_all_counts()
+        out, prefix, wall = run_driver(optimize_ramp, cfg, tmp)
+        launches = bt.bond_theta_launches
+        n_err = npart_error(prefix, p.n_steps)
+    st = out["status"]
+    f1 = st["history"][1][1]
+    rel = abs(f1 - ip_mps_f1) / abs(ip_mps_f1)
+    res = {"agree": agree, "thetas": thetas, "steps": steps,
+           "ip_host": {"f": st["f"], "iterations": st["iterations"],
+                       "history": st["history"], "f1_vs_mps_rel": rel,
+                       "npart_max_err": n_err, "wall_s": wall,
+                       "bond_theta_launches": launches}}
+    print(json.dumps({"vidal_exact": res}))
+    if not launches > 0:
+        fail("vidal_exact: the driver launched no bond_theta kernel")
+    if not st["f"] < f0:
+        fail(f"vidal_exact: cost {st['f']} not below c=0's {f0}")
+    if not rel <= VIDAL_IP_REL_TOL:
+        fail(f"vidal_exact: f after iteration 1 {f1} vs ip_mps host "
+             f"{ip_mps_f1}: rel {rel}")
+    if not n_err < 1e-8:
+        fail(f"vidal_exact: ExpectationN.txt off Npart by {n_err}")
+    res["launches"] = launches
+    return res
+
+
+def drive_dmrg_exact() -> dict:
+    """dmrg_ground_state(5, 4, 5, 1.0, 2.5, chi=25) on the card, complex128,
+    against the exact sector ground state: energy and overlap."""
+    from optimalcontrolmps_torch import dmrg, groundstate, mps
+
+    L, d, U, chi = 5, 4, 2.5, 25
+    t0 = time.perf_counter()
+    # device=None: the card, as for every entry point of the port
+    A, e, hist = dmrg.dmrg_ground_state(L, d, NPART, 1.0, U, chi=chi,
+                                        return_history=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    E0 = float(np.linalg.eigvalsh(groundstate.sector_hamiltonian(
+        L, d, NPART, 1.0, U))[0])
+    vec = groundstate.ground_statevector(L, d, NPART, 1.0, U)
+    ov = abs(np.vdot(mps.to_statevector(A[None])[0].cpu().numpy(), vec))
+    res = {"E": e, "E_exact": E0, "dE": abs(e - E0), "overlap": ov,
+           "sweeps": len(hist), "history": hist, "wall_s": wall,
+           "s_per_sweep": wall / len(hist)}
+    print(json.dumps({"dmrg_exact": res}))
+    if not abs(e - E0) < DMRG_E_TOL:
+        fail(f"dmrg_exact: E = {e!r}, exact {E0!r}")
+    if not abs(ov - 1.0) < DMRG_OVERLAP_TOL:
+        fail(f"dmrg_exact: |<exact|dmrg>| = {ov!r}")
+    return res
+
+
+class DmrgRecorder:
+    """Records every DMRG sweep (chi, seconds, energy) and every ground
+    state that `groundstate.initialize_state` makes by DMRG, while in its
+    `with` block."""
+
+    def __init__(self):
+        self.sweeps, self.states = [], []
+
+    def __enter__(self):
+        from optimalcontrolmps_torch import dmrg, groundstate
+        self._sweep, self._ground = dmrg._sweep, groundstate.dmrg_ground_state
+
+        def sweep(A, W, chi, krylov):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            A, e = self._sweep(A, W, chi, krylov)
+            torch.cuda.synchronize()
+            self.sweeps.append((chi, time.perf_counter() - t0, e))
+            return A, e
+
+        def ground(*args, **kw):
+            t0 = time.perf_counter()
+            A, e, hist = self._ground(*args, return_history=True, **kw)
+            self.states.append({"A": A, "E": e, "history": hist,
+                                "s": time.perf_counter() - t0,
+                                "U": args[4]})
+            return A, e
+
+        dmrg._sweep, groundstate.dmrg_ground_state = sweep, ground
+        return self
+
+    def __exit__(self, *exc):
+        from optimalcontrolmps_torch import dmrg, groundstate
+        dmrg._sweep, groundstate.dmrg_ground_state = self._sweep, self._ground
+
+
+def drive_vidal_scaled() -> dict:
+    """optimize_ramp.run on SCALED_CONFIG (L = SCALED_N, d=7, maxBondDim
+    128 -> chi = 128, complex64, M=30, tstep 0.02, engine = vidal,
+    ipMode = host, hessianRowBlock 30) with truncMethod = eigh, T =
+    SCALED_T, maxIter = 1, stateCache = no: both boundary states by DMRG
+    on the card (the chi ramp 10, 20, 50, 100, 128), one host-mode
+    interior-point iteration (segmented gradient, one streaming Hessian)
+    and the streaming finalize. Then the bond theta on both stages' stacked
+    inputs of the initial state, the step's time, and the SVD's share of a
+    DMRG sweep at the top chi (the middle bond's split, timed alone)."""
+    from optimalcontrolmps_torch import config, dmrg, mps, tebd, vidal
+    from optimalcontrolmps_torch.drivers import optimize_ramp
+    from optimalcontrolmps_torch.ops import bond_theta as bt
+    from optimalcontrolmps_torch.sites import op
+
+    cfg = config.parse_input_file(SCALED_CONFIG)
+    cfg.values.update({"truncMethod": "eigh", "T": str(SCALED_T),
+                       "maxIter": "1", "stateCache": "no"})
+    if SCALED_N != cfg.get_int("N"):
+        # unit filling, as shipped
+        cfg.values.update({"N": str(SCALED_N), "Npart": str(SCALED_N)})
+    L, d, npart = cfg.get_int("N"), cfg.get_int("d"), cfg.get_int("Npart")
+    n_steps = int(SCALED_T / cfg.get_real("tstep") + 1)
+    with tempfile.TemporaryDirectory() as tmp, DmrgRecorder() as rec:
+        reset_all_counts()
+        out, prefix, wall = run_driver(optimize_ramp, cfg, tmp)
+        launches = bt.bond_theta_launches
+        expn = np.loadtxt(prefix + "ExpectationN.txt")
+    n_err = (float(np.abs(expn[:, 1:].sum(axis=1) - npart).max())
+             if expn.ndim == 2 and expn.shape[0] == n_steps
+             else float("inf"))
+    states = []
+    for s in rec.states:
+        E = [h[1] for h in s["history"]]
+        rise = max([b - a for a, b in zip(E, E[1:])] + [0.0])
+        ntot = float(mps.expectation_values(
+            s["A"][None], op("N", d)).real.sum())
+        states.append({"U": s["U"], "E": s["E"], "s": s["s"],
+                       "sweeps": len(E), "history": s["history"],
+                       "max_rise": rise, "npart_err": abs(ntot - npart)})
+    chi = max(c for c, _, _ in rec.sweeps)
+    top = [t for c, t, _ in rec.sweeps if c == chi]
+
+    # the kernel and the step at this scale, on the Vidal form of the
+    # initial state; the SVD split's share of a sweep at the top chi
+    A = rec.states[0]["A"]
+    st = tebd.make_stepper(L, d, 1.0, cfg.get_real("tstep"), chi,
+                           dtype=A.dtype, sweep="vidal", device=A.device)
+    state = vidal.from_mps(A, device=A.device)
+    thetas = vidal_stage_thetas(st, state, 1, "vidal_scaled")
+    step = vidal_step_reading(st, state, 1, 3)
+    # the split of the middle bond's two-site theta, as DMRG makes it (in
+    # complex128, dmrg.SVD_DRIVER), against PyTorch's default driver
+    p = d + 1
+    mid = L // 2 - 1
+    m = torch.einsum('lpm,mqr->lpqr', A[mid], A[mid + 1]).to(
+        torch.complex128).reshape(1, chi * p, p * chi)
+    svd_ms = {drv or "default": cuda_ms(
+        lambda: torch.linalg.svd(m, full_matrices=False, driver=drv), 3)
+        for drv in (dmrg.SVD_DRIVER, None)}
+    svd_share = (2 * (L - 1) * svd_ms[dmrg.SVD_DRIVER] / 1e3
+                 / (sum(top) / len(top)))
+    st_out = out["status"]
+    res = {"L": L, "d": d, "chi": chi, "n_steps": n_steps,
+           "f": st_out["f"], "iterations": st_out["iterations"],
+           "history": st_out["history"], "infidelity": out["infidelity"],
+           "npart_max_err": n_err, "wall_s": wall,
+           "dmrg_states": states,
+           "dmrg_sweeps": [[c, t] for c, t, _ in rec.sweeps],
+           "dmrg_s_per_sweep_top_chi": sum(top) / len(top),
+           "svd_ms": svd_ms, "svd_share": svd_share,
+           "thetas": thetas, "step": step, "bond_theta_launches": launches}
+    print(f"vidal_scaled DMRG: {[round(s['s'], 2) for s in states]} s per "
+          f"state, {res['dmrg_s_per_sweep_top_chi']:.3f} s per sweep at "
+          f"chi={chi}, the SVD split {100 * svd_share:.1f}% of it "
+          f"(svd ms {svd_ms})")
+    print(json.dumps({"vidal_scaled": res}))
+    if not launches > 0:
+        fail("vidal_scaled: the driver launched no bond_theta kernel")
+    if len(states) != 2:
+        fail(f"vidal_scaled: {len(states)} DMRG states, want 2")
+    for s in states:
+        if not s["max_rise"] <= SCALED_E_RISE * abs(s["E"]):
+            fail(f"vidal_scaled: a DMRG sweep energy rose by "
+                 f"{s['max_rise']} (U = {s['U']})")
+        if not s["npart_err"] < SCALED_NPART_TOL:
+            fail(f"vidal_scaled: DMRG particle number off by "
+                 f"{s['npart_err']} (U = {s['U']})")
+    if not (np.isfinite(st_out["f"]) and st_out["iterations"] >= 1):
+        fail(f"vidal_scaled: f = {st_out['f']}, iterations "
+             f"{st_out['iterations']}")
+    if not n_err < SCALED_NPART_TOL:
+        fail(f"vidal_scaled: ExpectationN.txt off Npart by {n_err}")
+    res["launches"] = launches
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False; this script needs a GPU")
@@ -787,7 +1112,7 @@ def main() -> None:
     phases.done("bond_theta kernel vs twin")
     check_golden()
     phases.done("MPS golden")
-    check_card_vs_cpu()
+    _, mps_card = check_card_vs_cpu()
     phases.done("card vs CPU")
 
     sector_launches = drive_sector(batch, kind, smi)
@@ -802,10 +1127,23 @@ def main() -> None:
     phases.done("ip_sector (optimize_ramp.run, useBFGS = no)")
     drive_ip_flagship_cold()
     phases.done("ip_flagship_cold (minimize_interior_point)")
-    kernels["bond_theta"]["launches"] += drive_ip_mps()["launches"]
+    ip_mps = drive_ip_mps()
+    kernels["bond_theta"]["launches"] += ip_mps["launches"]
     phases.done("ip_mps (optimize_ramp.run, engine = mps, jit/host/resume)")
     drive_amoeba()
     phases.done("amoeba (amoeba_opt.run)")
+
+    bt = kernels["bond_theta"]
+    vx = drive_vidal_exact(mps_card, ip_mps["f_after_iteration_1"]["host"])
+    phases.done("vidal_exact (engine = vidal, ipMode = host)")
+    drive_dmrg_exact()
+    phases.done("dmrg_exact (dmrg_ground_state)")
+    vs = drive_vidal_scaled()
+    phases.done("vidal_scaled (the reference-scale config, DMRG states)")
+    for r in (vx, vs):
+        bt["launches"] += r["launches"]
+        bt["checks"] += r["thetas"]
+    bt["max_abs_err"] = max(c["max_abs_err"] for c in bt["checks"])
 
     print(json.dumps({"kernels": [kernels[k] for k in (
         "sector_chain_fwd", "sector_chain_bwd", "bond_theta")]}))

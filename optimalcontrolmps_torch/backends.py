@@ -7,14 +7,13 @@ cost_and_gradient, hessian), so callers write `eng = engine_for(stepper)`
 once:
 
 * `engine` - fixed-rank MPS TEBD (`tebd.TEBDStepper`);
-* `sector` - dense fixed-N propagation (`sector.SectorStepper`).
-
-The Vidal engine (sweep="vidal") is not ported yet.
+* `sector` - dense fixed-N propagation (`sector.SectorStepper`);
+* `vidal` - canonical-form brick TEBD with truncation (sweep="vidal").
 """
 
 from __future__ import annotations
 
-from . import engine, sector
+from . import engine, sector, vidal
 from .groundstate import sector_dim
 from .sector import SECTOR_MAX_DIM, SectorStepper
 
@@ -22,12 +21,11 @@ __all__ = ["engine_for", "sector_fits"]
 
 
 def engine_for(stepper):
-    """Return the engine module (`engine` or `sector`)."""
+    """Return the engine module (`engine`, `sector` or `vidal`)."""
     if isinstance(stepper, SectorStepper):
         return sector
     if getattr(stepper, "sweep", None) == "vidal":
-        raise NotImplementedError("the Vidal engine is not ported yet "
-                                  "(ROADMAP Queue 1 item 12)")
+        return vidal
     return engine
 
 

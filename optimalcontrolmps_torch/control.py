@@ -56,9 +56,10 @@ class ControlBasis:
         return B.T @ hess_u @ B
 
 
-def basis_from_numpy(u0, S, f, device) -> ControlBasis:
+def basis_from_numpy(u0, S, f, device=None) -> ControlBasis:
     """ControlBasis from host arrays (e.g. the JAX basis' fields), kept in
-    their own dtype."""
+    their own dtype, on `device` (None means the card)."""
+    device = resolve_device(device)
     return ControlBasis(*(torch.as_tensor(np.asarray(a), device=device)
                           for a in (u0, S, f)))
 

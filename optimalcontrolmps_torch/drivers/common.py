@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from .. import control as controllib
-from .. import groundstate, sector, seeds, tebd
+from .. import groundstate, sector, seeds, tebd, vidal
 from .. import io as iolib
 from ..backends import sector_fits
 from ..config import InputGroup
@@ -58,7 +58,8 @@ class ProblemSetup:
     seed: int
     dtype: torch.dtype
     device: torch.device
-    kind: str = "mps"   # "mps" (TEBD engine) or "sector" (fixed-N dense)
+    kind: str = "mps"   # "mps" (snake TEBD), "vidal" (canonical-form
+    #                     brick TEBD) or "sector" (fixed-N dense)
 
 
 def config_device(cfg: InputGroup) -> torch.device:
@@ -82,9 +83,13 @@ def effective_chi(max_bond_dim: int, L: int, p: int) -> int:
 def build_problem(cfg: InputGroup, seed: int = 1, dtype=None, u0=None,
                   engine: str = "mps", device=None,
                   state_cache: str = None) -> ProblemSetup:
-    """engine: "mps" (the reference's snake TEBD), "sector" (fixed-N dense
-    engine) or "auto" (sector when it fits and the MPS path would be
-    truncation-free, else mps). device=None: the config's `backend`.
+    """engine: "mps" (the reference's snake TEBD), "vidal" (canonical-form
+    brick TEBD with truncation, the long-chain path), "sector" (fixed-N
+    dense engine) or "auto" (sector when it fits and the MPS path would be
+    truncation-free, else mps; never vidal). Boundary states come from
+    `groundstate.initialize_state` (DMRG above its exact-diagonalization
+    limit), in the Vidal form for engine = vidal. device=None: the
+    config's `backend`.
     state_cache: optional npz path of the boundary states, loaded when its
     fingerprint matches this problem, else written after they are made."""
     device = config_device(cfg) if device is None else torch.device(device)
@@ -134,21 +139,25 @@ def build_problem(cfg: InputGroup, seed: int = 1, dtype=None, u0=None,
         def ground(u):
             return sector.sector_ground_state(L, d, npart, J_HOP, u,
                                               dtype=dtype, device=device)
-    elif engine == "mps":
+    elif engine in ("mps", "vidal"):
         stepper = tebd.make_stepper(L, d, J_HOP, tstep, chi, dtype=dtype,
-                                    device=device, trunc_method=trunc)
+                                    device=device, trunc_method=trunc,
+                                    sweep="vidal" if engine == "vidal"
+                                    else "snake")
 
         def ground(u):
-            return groundstate.initialize_state(L, d, npart, J_HOP, u, chi,
-                                                dtype=dtype, device=device)
-    elif engine == "vidal":
-        raise NotImplementedError("engine = vidal: the Vidal engine is not "
-                                  "ported yet (ROADMAP Queue 1 item 12)")
+            A = groundstate.initialize_state(L, d, npart, J_HOP, u, chi,
+                                             dtype=dtype, device=device)
+            return (vidal.from_mps(A, device=device) if engine == "vidal"
+                    else A)
     else:
         raise ValueError(f"unknown engine {engine!r}")
     if cached is not None:
-        psi_i, psi_f = (torch.as_tensor(a, dtype=dtype, device=device)
-                        for a in cached)
+        psi_i, psi_f = (
+            vidal.VidalState(*(torch.as_tensor(a, device=device)
+                               for a in s)) if isinstance(s, tuple)
+            else torch.as_tensor(s, dtype=dtype, device=device)
+            for s in cached)
     else:
         psi_i, psi_f = ground(float(u0[0])), ground(float(u0[-1]))
         if state_cache:

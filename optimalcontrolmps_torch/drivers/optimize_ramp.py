@@ -10,7 +10,7 @@ Optimizers:
   - one ramp, re-entered every `ipChunk` iterations with the multipliers
     and the barrier carried over, a checkpoint after each chunk;
   - `multistart` > 1: a lockstep batch of starts;
-  - `ipMode = host` (or `auto` on the MPS engine when chi >= 64 or
+  - `ipMode = host` (or `auto` on the MPS and Vidal engines when chi >= 64 or
     N_t > 256): the host-loop solver with the segmented gradient and the
     streaming Hessian (`hessianRowBlock`, `hessianProgress`), a checkpoint
     after every iteration.
@@ -20,7 +20,7 @@ Optimizers:
 
 Config keys: tstep, T, N, Npart, d, M, gamma, cacheProgress, maxBondDim,
 threshold, optTol, useBFGS, maxIter, precision (single|double), engine
-(auto|mps|sector), multistart, useGRAPE, exactGradient, newtonPolish,
+(auto|mps|vidal|sector), multistart, useGRAPE, exactGradient, newtonPolish,
 writeHessians, ObjScaling, truncMethod, muStrategy (monotone|adaptive),
 maxCPUHours, ipChunk, ipMode (auto|jit|host), hessianRowBlock,
 hessianProgress, checkpointEvery, resume, stateCache, and backend (cpu asks
@@ -32,7 +32,9 @@ ProgressCache.txt (cacheProgress), GRAPEHessian.txt and GROUPHessian.txt
 `resume = yes` restarts from checkpoint.json: its control, and in the
 interior point its multipliers and barrier.
 
-Not ported yet, and refused (by build_problem): engine = vidal.
+`engine = vidal` runs every mode on the canonical-form brick TEBD
+(`vidal.py`, truncMethod eigh), whose exact Hessian steps its rows through
+a snake twin; long chains take their boundary states from DMRG.
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ from ..sector import expectation_n
 from ..sites import op
 from ..streaming import rollout_measure
 from ..tebd import tebd_step
+from ..vidal import VidalState, vidal_step
 from .common import build_problem, print_banner, time_axis
 
 __all__ = ["run", "main"]
@@ -89,6 +92,13 @@ def _penalty_and_grad(basis, C):
 
 def _fidelity_cost(ov, u, gamma, dt):
     return 0.5 * (1.0 - (ov * ov.conj()).real) + regularization(u, gamma, dt)
+
+
+def _lane(a, b):
+    """Lane b of a batched result: a tensor, or a Vidal state stack."""
+    if isinstance(a, VidalState):
+        return VidalState(a.B[b], a.lam[b])
+    return a[b]
 
 
 def _duals_list(duals):
@@ -194,7 +204,8 @@ def run(cfg_path: str, seed: int = 1, out_prefix: str = "") -> dict:
         g_u, aux = eng.gradient(st, psi_i, psi_f, U, gamma)
         J = _fidelity_cost(aux[3], U, gamma, st.dt)
         H = torch.stack([basis.convert_hessian(eng.hessian(
-            st, psi_i, psi_f, U[b], gamma, aux=tuple(a[b] for a in aux)))
+            st, psi_i, psi_f, U[b], gamma,
+            aux=tuple(_lane(a, b) for a in aux)))
             for b in range(C.shape[0])])
         return (obj_scaling * J,
                 obj_scaling * basis.convert_gradient(g_u.T).T,
@@ -420,10 +431,15 @@ def run(cfg_path: str, seed: int = 1, out_prefix: str = "") -> dict:
         io.write_matrix(out_prefix + "GROUPHessian.txt",
                         basis.convert_hessian(H_grape).cpu().numpy())
 
+    n_op = op("N", p.d)
     if p.kind == "sector":
         expn = expectation_n(st, eng.rollout(st, psi_i, u_final))
+    elif p.kind == "vidal":
+        expn = rollout_measure(
+            lambda s, ua, ub: vidal_step(st, s, ua, ub, forward=True),
+            VidalState(psi_i.B[None], psi_i.lam[None]), u_final,
+            lambda s: expectation_values(s.B, n_op).real[0])
     else:
-        n_op = op("N", p.d)
         expn = rollout_measure(
             lambda s, ua, ub: tebd_step(st, s, ua, ub, forward=True),
             psi_i[None], u_final,
@@ -450,9 +466,9 @@ def run(cfg_path: str, seed: int = 1, out_prefix: str = "") -> dict:
 def _solve_ip_host(cfg, p, eng, basis, gamma, obj_scaling, c0, opt_tol,
                    max_iter, mu_strategy, duals, mu0, max_cpu_s, ck_path,
                    callback, cheap, path_kw):
-    """ipMode = host: the host-loop interior point on the MPS engine, with
-    the segmented gradient, the streaming Hessian and a checkpoint after
-    every iteration."""
+    """ipMode = host: the host-loop interior point on the MPS or Vidal
+    engine, with the segmented gradient, the streaming Hessian and a
+    checkpoint after every iteration."""
     st, psi_i, psi_f = p.stepper, p.psi_i, p.psi_f
     row_block = cfg.get_int("hessianRowBlock", 64)
     verbose = cfg.get_yesno("hessianProgress", True)

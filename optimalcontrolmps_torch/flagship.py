@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from . import control, sector, seeds
+from .device import resolve_device
 from .engine import regularization
 from .ops.sector_chain import chain_constants, chain_final
 from .optimize import minimize_lbfgs, minimize_lbfgs_batch, minimize_newton
@@ -47,10 +48,11 @@ class Problem:
     gamma: float
 
 
-def make_problem(device, f64: bool = False, T: float = T,
+def make_problem(device=None, f64: bool = False, T: float = T,
                  M: int = M) -> Problem:
     """bench.py:_problem: complex64/float32 unless f64. The basis' seed
-    ramp comes from numpy rng BASIS_SEED."""
+    ramp comes from numpy rng BASIS_SEED. device=None means the card."""
+    device = resolve_device(device)
     N = int(round(T / DT)) + 1
     cdtype = torch.complex128 if f64 else torch.complex64
     rdtype = torch.float64 if f64 else torch.float32
@@ -149,12 +151,13 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def solve_flagship(B: int, device, max_iter: int = 150, tol: float = 1e-5,
-                   seed: int = 7) -> dict:
-    """The flagship multistart solve on `device`; returns bench.py's keys
-    plus the phase wall times and the best lane's chip-phase coefficients
-    (`c0`)."""
+def solve_flagship(B: int, device=None, max_iter: int = 150,
+                   tol: float = 1e-5, seed: int = 7) -> dict:
+    """The flagship multistart solve on `device` (None: the card); returns
+    bench.py's keys plus the phase wall times and the best lane's
+    chip-phase coefficients (`c0`)."""
     enforce_matmul_precision()
+    device = resolve_device(device)
     prob = make_problem(device)
     cs = multistart_coeffs(B, prob.basis.M, seed)
 

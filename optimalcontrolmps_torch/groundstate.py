@@ -1,8 +1,9 @@
 """Fixed particle-number sector of the Bose-Hubbard chain, ground states.
 
 Counterpart of optimalcontrolmps_tpu/groundstate.py: the sector basis and
-Hamiltonian in numpy, and `initialize_state`'s exact path (an MPS on a
-torch device; DMRG is not ported). Hamiltonian:
+Hamiltonian in numpy, and `initialize_state` (an MPS on a torch device), by
+exact diagonalization of the sector or, above EXACT_DIAG_MAX_DIM states,
+by DMRG (`dmrg.py`). Hamiltonian:
     H = -J sum_i (a_i adag_{i+1} + adag_i a_{i+1}) + U/2 sum_i n_i(n_i-1)
 """
 
@@ -15,13 +16,13 @@ import torch
 
 from . import mps as mpslib
 from .device import resolve_device
+from .dmrg import dmrg_ground_state
 
 __all__ = ["sector_basis", "sector_hamiltonian", "sector_dim",
            "sector_ground_vector", "ground_statevector", "initialize_state",
            "EXACT_DIAG_MAX_DIM"]
 
-# exact diagonalization below this sector dimension; above it the JAX
-# package runs DMRG, which the port does not have yet
+# exact diagonalization up to this sector dimension, DMRG above it
 EXACT_DIAG_MAX_DIM = 20_000
 
 
@@ -108,21 +109,24 @@ def ground_statevector(L: int, d: int, npart: int, J: float,
 
 def initialize_state(L: int, d: int, npart: int, J: float, U: float,
                      chi: int, dtype=None, method: str = "auto",
-                     device=None):
+                     n_sweeps: int = 8, device=None):
     """Ground-state MPS (L, chi, p, chi) on `device` (None means the card):
-    the reference's InitializeState, by exact diagonalization of the fixed-N
-    sector and successive SVDs. method "auto" or "exact"; "dmrg", and
-    sectors above EXACT_DIAG_MAX_DIM, wait for the DMRG slice."""
+    the reference's InitializeState. method "exact" diagonalizes the fixed-N
+    sector and splits the vector by successive SVDs; "dmrg" runs
+    `dmrg.dmrg_ground_state` (n_sweeps at the target chi); "auto" takes
+    exact up to EXACT_DIAG_MAX_DIM sector states, DMRG above."""
     device = resolve_device(device)
     dtype = torch.complex128 if dtype is None else dtype
     if method == "auto":
-        method = "exact"
-    if method != "exact" or sector_dim(L, d, npart) > EXACT_DIAG_MAX_DIM:
-        raise NotImplementedError(
-            f"initialize_state(method={method!r}, sector dim "
-            f"{sector_dim(L, d, npart)}): DMRG ground states wait for the "
-            f"DMRG slice (ROADMAP Queue 1 item 13); the port diagonalizes "
-            f"sectors up to {EXACT_DIAG_MAX_DIM} states exactly")
+        method = ("exact" if sector_dim(L, d, npart) <= EXACT_DIAG_MAX_DIM
+                  else "dmrg")
+    if method == "dmrg":
+        A, _ = dmrg_ground_state(L, d, npart, J, U, chi, n_sweeps=n_sweeps,
+                                 dtype=dtype, device=device)
+        return A
+    if method != "exact":
+        raise ValueError(f"unknown method {method!r}: 'auto', 'exact' or "
+                         f"'dmrg'")
     vec = ground_statevector(L, d, npart, J, U)
     A = mpslib.from_statevector(vec, L, d + 1, chi)
     return torch.as_tensor(A, dtype=dtype, device=device)

@@ -98,27 +98,36 @@ def _meta_key(meta: dict):
 
 
 def save_states(path, psi_i, psi_f, meta: dict):
-    """Atomic npz of the boundary states (MPS (L, chi, p, chi) or sector
-    (ns,) arrays, numpy or tensors on any device) with a JSON fingerprint
-    of the problem, `meta`, that load_states checks."""
-    arrays = {name: (s.cpu().numpy() if hasattr(s, "cpu") else
-                     np.asarray(s))
-              for name, s in (("psi_i", psi_i), ("psi_f", psi_f))}
+    """Atomic npz of the boundary states with a JSON fingerprint of the
+    problem, `meta`, that load_states checks. A state is a plain MPS
+    (L, chi, p, chi), a sector vector (ns,), numpy or a tensor on any
+    device, or a Vidal state (anything with `B` and `lam`), saved as the
+    `<name>_B` / `<name>_lam` pair."""
+    def host(a):
+        return a.cpu().numpy() if hasattr(a, "cpu") else np.asarray(a)
+
+    arrays = {}
+    for name, s in (("psi_i", psi_i), ("psi_f", psi_f)):
+        if hasattr(s, "B") and hasattr(s, "lam"):
+            arrays[name + "_B"], arrays[name + "_lam"] = host(s.B), host(
+                s.lam)
+        else:
+            arrays[name] = host(s)
     tmp = path + ".tmp.npz"
     np.savez(tmp, __meta__=json.dumps(meta, sort_keys=True), **arrays)
     os.replace(tmp, path)
 
 
 def load_states(path, meta: dict):
-    """(psi_i, psi_f) as numpy arrays from a save_states npz, or None when
-    the file is absent or its fingerprint differs from `meta`: a stale
-    cache must never feed other physics."""
+    """(psi_i, psi_f) from a save_states npz, each a numpy array or, for a
+    Vidal state, a (B, lam) tuple of numpy arrays; None when the file is
+    absent or its fingerprint differs from `meta`: a stale cache must never
+    feed other physics."""
     if not os.path.exists(path):
         return None
     with np.load(path, allow_pickle=False) as z:
         if json.loads(str(z["__meta__"])) != _meta_key(meta):
             return None
-        if not {"psi_i", "psi_f"} <= set(z.files):
-            raise ValueError(f"{path}: not a plain-MPS or sector state cache "
-                             f"(Vidal states are not ported)")
-        return z["psi_i"], z["psi_f"]
+        return tuple(z[name] if name in z.files
+                     else (z[name + "_B"], z[name + "_lam"])
+                     for name in ("psi_i", "psi_f"))

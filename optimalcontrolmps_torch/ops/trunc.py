@@ -7,8 +7,10 @@ static (chi, p, chi) site shape.
 
 Methods of `split_truncate`:
   * "eigh" (default): eigh of the density matrix theta theta^H (or
-    theta^H theta), the reference's denmatDecomp;
-  * "svd": `torch.linalg.svd`;
+    theta^H theta), the reference's denmatDecomp (`eigh`: in double
+    precision for a single-precision theta);
+  * "svd": `torch.linalg.svd` (on the card with the cuSOLVER driver the
+    caller names);
   * "rsvd" / "rsvdK": subspace iteration on the density matrix with K
     Householder-QR iterations (3 by default) and a small Rayleigh-Ritz eigh;
   * "range": one Gaussian sketch and a thin QR, exact when rank(theta) <=
@@ -24,7 +26,7 @@ from functools import lru_cache
 
 import torch
 
-__all__ = ["split_truncate", "cholesky_orthonormalize"]
+__all__ = ["split_truncate", "cholesky_orthonormalize", "eigh"]
 
 _RSVD_ITERS = 3
 _RSVD_OVERSAMPLE = 8
@@ -98,23 +100,40 @@ def _top_eigenspace_rsvd(rho, chi: int, iters: int = _RSVD_ITERS):
         q = _thin_qr_q(rho @ q)
     small = _h(q) @ (rho @ q)
     small = 0.5 * (small + _h(small))
-    _, v = torch.linalg.eigh(small)
+    _, v = eigh(small)
     return q @ v.flip(-1)[..., :chi]
+
+
+def eigh(rho):
+    """torch.linalg.eigh of a batch of Hermitian matrices; a single-precision
+    batch is solved in double precision and cast back. cuSOLVER's complex64
+    eigh failed to converge on the density matrix of a chain-end bond of a
+    reference-scale state (chi=128, p=8: rank 8 of 1024 after the jitter)
+    where complex128 converged, at +25-35% of the time
+    (tools/probe_scaled_linalg.py); the same on every device."""
+    if rho.dtype in _DOUBLE:
+        return torch.linalg.eigh(rho)
+    w, v = torch.linalg.eigh(rho.to(torch.complex128 if rho.is_complex()
+                                    else torch.float64))
+    return w.to(rho.real.dtype), v.to(rho.dtype)
 
 
 def _eigh_desc(rho, chi: int):
     """Top-`chi` eigenpairs of a batch of Hermitian matrices, descending."""
-    w, v = torch.linalg.eigh(rho)
+    w, v = eigh(rho)
     return w.flip(-1)[..., :chi], v.flip(-1)[..., :chi]
 
 
-def split_truncate(theta, chi: int, keep_left: bool, method: str = "eigh"):
+def split_truncate(theta, chi: int, keep_left: bool, method: str = "eigh",
+                   svd_driver: str | None = None):
     """Split a batch of matrices theta (B, m, n) into (left (B, m, chi),
     right (B, chi, n)) with theta ~= left @ right.
 
     keep_left=True: left is an isometry, right carries the center.
     keep_left=False: right is an isometry, left carries the center.
-    Requires m >= chi and n >= chi.
+    Requires m >= chi and n >= chi. svd_driver: the cuSOLVER driver of the
+    "svd" method on a CUDA tensor (None: PyTorch's choice); ignored on the
+    CPU, whose LAPACK has one.
     """
     if method.startswith("rsvd") and method != "rsvd":
         iters = int(method[4:])
@@ -151,7 +170,9 @@ def split_truncate(theta, chi: int, keep_left: bool, method: str = "eigh"):
         return left * keep[..., None, :], (_h(v) * keep[..., :, None]
                                            ).resolve_conj()
     if method == "svd":
-        u, s, vh = torch.linalg.svd(theta, full_matrices=False)
+        u, s, vh = torch.linalg.svd(
+            theta, full_matrices=False,
+            driver=svd_driver if theta.is_cuda else None)
         u, s, vh = u[..., :chi], s[..., :chi].to(theta.dtype), vh[..., :chi, :]
         if keep_left:
             return u, s[..., :, None] * vh
@@ -159,6 +180,6 @@ def split_truncate(theta, chi: int, keep_left: bool, method: str = "eigh"):
     if method == "nssub":
         raise ValueError("trunc_method 'nssub' is the JAX package's matmul-"
                          "only route for a TPU without factorizations; the "
-                         "port leaves it to the Vidal slice (ROADMAP Queue 1 "
-                         "item 12)")
+                         "port truncates with 'eigh' (or 'svd', 'rsvd', "
+                         "'range')")
     raise ValueError(f"Unknown truncation method {method!r}")

@@ -103,9 +103,11 @@ class SectorStepper:
 _META = ("L", "d", "npart", "ns", "ns_p", "dt")
 
 
-def stepper_from_numpy(fields: dict, device) -> SectorStepper:
+def stepper_from_numpy(fields: dict, device=None) -> SectorStepper:
     """SectorStepper from host arrays, e.g. the JAX stepper's fields
-    `{k: np.asarray(v) for k, v in dataclasses.asdict(st).items()}`."""
+    `{k: np.asarray(v) for k, v in dataclasses.asdict(st).items()}`, on
+    `device` (None means the card)."""
+    device = resolve_device(device)
     kw = {}
     for f in dataclasses.fields(SectorStepper):
         v = fields[f.name]

@@ -118,19 +118,21 @@ class BlockHessian:
     ~N_t^2/2 steps, as in the dense Hessian.
 
     fwd(psi, u_i, u_{i+1}) and bwd(xi, u_i, u_{i-1}) step one-state
-    batches; row_step(rows, u_j, u_{j+1}) steps a batch of rows;
-    apply_dh(states) -> (normalized dH states, norms); overlap(phi, psi)
-    per batch element.
+    batches; get_b(state) is its plain MPS batch (the state itself when
+    None; the Vidal engine's `to_mps`); row_step(rows, u_j, u_{j+1}) steps
+    a batch of plain-MPS rows; apply_dh(states) -> (normalized dH states,
+    norms); overlap(phi, psi) per batch element.
     """
 
     def __init__(self, n: int, R: int, fwd, bwd, apply_dh, row_step,
-                 overlap):
+                 overlap, get_b=None):
         if (n - 1) % R:
             raise ValueError(f"R={R} must divide N_t - 1 = {n - 1}")
         self.n, self.R, self.S = n, R, (n - 1) // R
         self.fwd, self.bwd = fwd, bwd
         self.apply_dh, self.row_step = apply_dh, row_step
         self.overlap = overlap
+        self.get_b = get_b if get_b is not None else (lambda s: s)
 
     def ov_data(self, psi0, psi_target, u, progress=None):
         """(ovm[j, i] = <xiH_j|psiH_i(t_j)>, row_norm, xih_norm, diag_ov)
@@ -151,9 +153,10 @@ class BlockHessian:
             for i in range(s * R + R, s * R, -1):
                 xi = bwd(xi, u[i], u[i - 1])
 
-        cdt = psi0.dtype
+        get_b = self.get_b
+        cdt = get_b(psi0).dtype
         rdt = cdt.to_real()
-        dev = psi0.device
+        dev = get_b(psi0).device
         ovm = torch.zeros((n, n), dtype=cdt, device=dev)
         row_norm = torch.zeros(n, dtype=rdt, device=dev)
         xih_norm = torch.zeros(n, dtype=rdt, device=dev)
@@ -167,8 +170,8 @@ class BlockHessian:
             for k in reversed(range(R)):
                 x = bwd(x, u[i0 + k + 1], u[i0 + k])
                 xs[k] = x
-            rows, rn = self.apply_dh(torch.cat(bs))
-            xih, xn = self.apply_dh(torch.cat(xs))
+            rows, rn = self.apply_dh(torch.cat([get_b(b) for b in bs]))
+            xih, xn = self.apply_dh(torch.cat([get_b(x) for x in xs]))
             row_norm[i0:i0 + R] = rn
             xih_norm[i0:i0 + R] = xn
             diag_ov[i0:i0 + R] = self.overlap(xih, rows)
@@ -179,7 +182,7 @@ class BlockHessian:
                 for k in range(R - 2, -1, -1):
                     x = bwd(x, u[j0 + k + 2], u[j0 + k + 1])
                     xs[k] = x
-                xih, xn = self.apply_dh(torch.cat(xs))
+                xih, xn = self.apply_dh(torch.cat([get_b(x) for x in xs]))
                 for k in range(R):
                     # rows i <= j0 + k step from t_{j0+k} to t_{j0+k+1}
                     na = R if s > c else k + 1

@@ -69,20 +69,23 @@ def make_stepper(L: int, d: int, J: float, dt: float, chi: int,
     canonical-center moves; needed whenever truncation is real.
     sweep="brick": all even bonds as one batch, then all odd bonds, with
     exact 'range' splits and no gauge moves; valid only when chi reaches the
-    exact rank bound. sweep="vidal" is the Vidal engine's, not ported yet.
+    exact rank bound.
+    sweep="vidal": canonical-form brick updates with real truncation, the
+    Schmidt values carried in the state (`vidal.VidalState`); step with
+    `vidal.vidal_step`, whose only truncation is "eigh".
     device=None means the card.
     """
     if sweep not in ("snake", "brick", "vidal"):
         raise ValueError(f"unknown sweep {sweep!r}")
-    if sweep == "vidal":
-        raise NotImplementedError(
-            "sweep='vidal' belongs to the Vidal engine, which the port does "
-            "not have yet (ROADMAP Queue 1 item 12)")
     if trunc_method == "nssub":
         raise NotImplementedError(
             "trunc_method='nssub' is the JAX package's matmul-only route for "
-            "a TPU without factorizations; the port leaves it to the Vidal "
-            "slice (ROADMAP Queue 1 item 12)")
+            "a TPU without factorizations; the port truncates with 'eigh' "
+            "(torch.linalg.eigh), on every sweep")
+    if sweep == "vidal" and trunc_method != "eigh":
+        raise ValueError("sweep='vidal' supports trunc_method 'eigh' (the "
+                         f"Schmidt values are its eigenvalues); got "
+                         f"{trunc_method!r}")
     bound = exact_rank_bound(L, d + 1)
     if sweep == "brick" and chi < bound:
         raise ValueError(
@@ -162,6 +165,9 @@ def _phase(st: TEBDStepper, u, B, dtype):
 def tebd_step(st: TEBDStepper, A, u_from, u_to, forward: bool = True):
     """One full Trotter step of a batch A (B, L, chi, p, chi); the center
     is at site 0 on entry and exit. u_from, u_to: scalars or (B,)."""
+    if st.sweep == "vidal":
+        raise TypeError("sweep='vidal' states are vidal.VidalState; step "
+                        "them with vidal.vidal_step")
     L, chi, method, gauge = st.L, st.chi, st.trunc_method, st.gauge_method
     B = A.shape[0]
     gate = st.gate_fwd if forward else st.gate_bwd

@@ -17,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from optimalcontrolmps_torch import flagship, groundstate, mps, tebd
+from optimalcontrolmps_torch import (dmrg, flagship, groundstate, mps, tebd,
+                                     vidal)
 from optimalcontrolmps_torch.ops import bond_theta as bt
 from optimalcontrolmps_torch.ops import sector_chain as sc
 from optimalcontrolmps_torch.seeds import adiabatic_seed
@@ -206,3 +207,63 @@ def test_tebd_step_on_the_card_matches_the_cpu(dev):
     assert bt.bond_theta_launches == 10 * (L - 1)
     ov = mps.overlap(*out)
     assert abs(abs(complex(ov[0])) - 1.0) < 1e-12
+
+
+# the Vidal stages' stacked inputs: the shipped L=5 problem's two even (and
+# two odd) bonds at one lane and at 4 multistart lanes, complex128; the
+# reference scale's 10 even and 9 odd bonds (L=20, chi=128, d=7), complex64
+@pytest.mark.parametrize("B,chi,p,dtype", [
+    (2, 25, 5, torch.complex128), (8, 25, 5, torch.complex128),
+    (10, 128, 8, torch.complex64), (9, 128, 8, torch.complex64)])
+def test_bond_theta_kernel_at_the_vidal_stage_shapes(dev, B, chi, p, dtype):
+    Ai, Aj, G = _theta_inputs(B, chi, p, dtype, 6, dev)
+    bt.reset_counts()
+    out = bt.bond_theta(Ai, Aj, G)
+    assert bt.bond_theta_launches == 1
+    ref = bt.bond_theta_reference(Ai, Aj, G)
+    torch.cuda.synchronize()
+    rel = float(torch.max(torch.abs(out - ref)) / torch.max(torch.abs(ref)))
+    assert rel < THETA_TOL[dtype]
+
+
+def test_vidal_step_on_the_card_matches_the_cpu(dev):
+    """Five forward, then five backward, Vidal steps of the shipped L=5
+    chain (chi = 25, no truncation) on the card (the kernel in every stage)
+    and on the CPU: the states agree as a gauge-invariant overlap, the
+    Schmidt values to the eigh split's resolution."""
+    L, d, chi = 5, 4, 25
+    vec = groundstate.ground_statevector(L, d, L, 1.0, 2.5)
+    A = mps.from_statevector(vec, L, d + 1, chi)
+    out = []
+    bt.reset_counts()
+    for device in (dev, "cpu"):
+        st = tebd.make_stepper(L, d, 1.0, 0.01, chi, sweep="vidal",
+                               device=device)
+        s = vidal.from_mps(A, device=device)
+        s = vidal.VidalState(s.B[None], s.lam[None])
+        u = torch.linspace(2.5, 10.0, 6, dtype=torch.float64)
+        for i in range(5):
+            s = vidal.vidal_step(st, s, u[i], u[i + 1])
+        for i in range(5, 0, -1):
+            s = vidal.vidal_step(st, s, u[i], u[i - 1], forward=False)
+        out.append(vidal.VidalState(s.B.cpu(), s.lam.cpu()))
+    assert bt.bond_theta_launches == 10 * 2
+    ov = mps.overlap(out[0].B, out[1].B)
+    assert abs(abs(complex(ov[0])) - 1.0) < 1e-12
+    np.testing.assert_allclose(out[0].lam.numpy(), out[1].lam.numpy(),
+                               atol=1e-7)
+
+
+def test_dmrg_on_the_card_matches_exact(dev):
+    """dmrg_ground_state on the card (complex128, L=5, d=4, chi=25): the
+    exact sector ground state's energy to 1e-9, overlap to 1e-8
+    (tests/test_dmrg.py:20-27)."""
+    L, d, npart = 5, 4, 5
+    E0 = np.linalg.eigvalsh(
+        groundstate.sector_hamiltonian(L, d, npart, 1.0, 2.5))[0]
+    A, e = dmrg.dmrg_ground_state(L, d, npart, 1.0, 2.5, chi=25,
+                                  device=dev)
+    assert A.is_cuda and abs(e - E0) < 1e-9
+    vec = groundstate.ground_statevector(L, d, npart, 1.0, 2.5)
+    ov = abs(np.vdot(mps.to_statevector(A[None])[0].cpu().numpy(), vec))
+    assert abs(ov - 1.0) < 1e-8

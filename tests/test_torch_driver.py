@@ -116,7 +116,7 @@ def test_sector_multistart_matches_vmapped(tmp_path, exact):
 
 
 @pytest.mark.parametrize("extra,match", [
-    ("engine = vidal", "Vidal"),
+    ("truncMethod = nssub", "eigh"),
     ("exactGradient = yes", "exactGradient"),
 ])
 def test_unported_modes_are_refused(tmp_path, extra, match):
@@ -356,3 +356,102 @@ def test_config_round_trip_and_problem_setup(tmp_path):
     assert p.kind == "mps" and p.chi == 3 == common.effective_chi(10, 3, 3)
     assert p.psi_i.shape == (3, 3, 3, 3) and p.n_steps == 11
     np.testing.assert_allclose(common.time_axis(p), np.arange(11) * 0.01)
+
+
+# ---------------------------------------------------------------------------
+# engine = vidal
+# ---------------------------------------------------------------------------
+
+HOST_VIDAL = """input
+{
+tstep = 0.01
+T = 0.1
+N = 4
+Npart = 4
+d = 2
+M = 5
+gamma = 1e-6
+maxBondDim = 16
+optTol = 1e-6
+useBFGS = no
+maxIter = 3
+cacheProgress = yes
+engine = vidal
+ipMode = host
+hessianRowBlock = 5
+hessianProgress = no
+muStrategy = adaptive
+stateCache = yes
+%s
+}
+"""
+
+
+def test_vidal_host_ip_driver_matches_jax(tmp_path):
+    """tests/test_drivers.py:181-226 (engine = vidal, ipMode = host: the
+    segmented gradient, the streaming Hessian with snake rows, the host
+    loop, the streaming finalize) in both drivers: the same iterates,
+    ProgressCache lines and files. The JAX driver's Vidal states.npz
+    (`<name>_B`, `<name>_lam`) then loads into the port's problem."""
+    outs, dirs = [], []
+    for name, extra in (("jax", ""), ("torch", "backend = cpu")):
+        d = tmp_path / name
+        d.mkdir()
+        cfg = tmp_path / f"cfg_{name}"
+        cfg.write_text(HOST_VIDAL % extra)
+        run = jdriver.run if name == "jax" else driver.run
+        outs.append(run(str(cfg), seed=1, out_prefix=str(d) + os.sep))
+        dirs.append(d)
+    (out_j, out_t), (jdir, tdir) = outs, dirs
+    assert out_t["status"]["iterations"] == out_j["status"]["iterations"]
+    assert abs(out_t["status"]["f"] - out_j["status"]["f"]) < 1e-10
+    assert abs(out_t["infidelity"] - out_j["infidelity"]) < 1e-10
+    assert _progress_rows(tdir / "ProgressCache.txt") == \
+        _progress_rows(jdir / "ProgressCache.txt")
+    assert sorted(os.listdir(tdir)) == sorted(os.listdir(jdir))
+    expn = np.loadtxt(tdir / "ExpectationN.txt")
+    assert expn.shape == (11, 5)
+    np.testing.assert_allclose(expn[:, 1:].sum(axis=1), 4.0, atol=1e-8)
+    np.testing.assert_allclose(expn, np.loadtxt(jdir / "ExpectationN.txt"),
+                               atol=1e-8)
+    ck = json.loads((tdir / "checkpoint.json").read_text())["extra"]
+    assert len(ck["duals"]) == 4
+
+    # the JAX driver's state cache, read by the port's build_problem
+    cfg = config.parse_input_file(str(tmp_path / "cfg_torch"))
+    jstates = np.load(jdir / "states.npz")
+    assert {"psi_i_B", "psi_i_lam", "psi_f_B", "psi_f_lam"} <= set(
+        jstates.files)
+    p = common.build_problem(cfg, engine="vidal",
+                             state_cache=str(jdir / "states.npz"))
+    np.testing.assert_array_equal(p.psi_i.B.numpy(), jstates["psi_i_B"])
+    np.testing.assert_array_equal(p.psi_f.lam.numpy(), jstates["psi_f_lam"])
+    mine = np.load(tdir / "states.npz")
+    np.testing.assert_allclose(mine["psi_i_lam"], jstates["psi_i_lam"],
+                               atol=1e-10)
+
+
+@pytest.mark.parametrize("extra", [
+    "useBFGS = yes", "useBFGS = yes\nmultistart = 3",
+    "useBFGS = no\nmultistart = 3"])
+def test_vidal_driver_modes_match_the_mps_engine(tmp_path, extra):
+    """engine = vidal in L-BFGS (one ramp and a multistart batch) and in
+    the multistart interior point, whose lanes and Hessians go through the
+    Vidal engine: on TINY, chi = 3 is the exact rank bound, so every lane
+    equals the MPS engine's run (the gate product is the same)."""
+    outs = []
+    for engine in ("vidal", "mps"):
+        d = tmp_path / engine
+        d.mkdir()
+        outs.append(driver.run(_cfg(tmp_path, "cfg_" + engine, engine,
+                                    extra + "\nbackend = cpu"),
+                               seed=1, out_prefix=str(d) + os.sep))
+    out_v, out_m = outs
+    assert out_v["status"]["iterations"] == out_m["status"]["iterations"]
+    assert out_v["status"]["f"] == pytest.approx(out_m["status"]["f"],
+                                                 rel=1e-8)
+    if "multistart" in extra:
+        np.testing.assert_allclose(out_v["status"]["batch_costs"],
+                                   out_m["status"]["batch_costs"], rtol=1e-8)
+    np.testing.assert_allclose(out_v["u_final"], out_m["u_final"],
+                               atol=1e-6)

@@ -183,6 +183,25 @@ def test_jitter_and_cholesky_orthonormalize():
 
 
 def test_nssub_is_refused():
-    with pytest.raises(ValueError, match="Vidal"):
+    with pytest.raises(ValueError, match="eigh"):
         trunc.split_truncate(torch.zeros((1, 4, 4), dtype=torch.complex128),
                              2, True, method="nssub")
+
+
+def test_eigh_solves_single_precision_in_double():
+    """ops.trunc.eigh: a complex64 batch is solved in complex128 and cast
+    back (cuSOLVER's complex64 eigh fails to converge on chain-end density
+    matrices at chi=128); a complex128 batch is torch.linalg.eigh's."""
+    rng = np.random.default_rng(4)
+    m = rng.normal(size=(2, 12, 12)) + 1j * rng.normal(size=(2, 12, 12))
+    rho64 = torch.as_tensor(m @ m.conj().transpose(0, 2, 1))
+    w, v = trunc.eigh(rho64.to(torch.complex64))
+    assert w.dtype == torch.float32 and v.dtype == torch.complex64
+    w_ref, v_ref = torch.linalg.eigh(rho64.to(torch.complex64).to(
+        torch.complex128))
+    np.testing.assert_array_equal(w.numpy(), w_ref.to(torch.float32).numpy())
+    np.testing.assert_array_equal(v.numpy(),
+                                  v_ref.to(torch.complex64).numpy())
+    w2, _ = trunc.eigh(rho64)
+    np.testing.assert_array_equal(w2.numpy(),
+                                  torch.linalg.eigh(rho64)[0].numpy())

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of optimalcontrolmps_torch, and not
-chip_smoke.py, imports JAX or the JAX package, at the top of a file or
-inside a function."""
+"""The port stands alone: no module of optimalcontrolmps_torch, not
+chip_smoke.py, and none of the port's tools (the `tools/*.py` that import
+the port or chip_smoke.py) imports JAX or the JAX package, at the top of a
+file or inside a function."""
 
 import ast
 import pathlib
@@ -14,6 +15,7 @@ FILES = sorted(str(p.relative_to(ROOT)) for p in
                (ROOT / "optimalcontrolmps_torch").rglob("*.py"))
 FILES.append("chip_smoke.py")
 FORBIDDEN = {"jax", "jaxlib", "optimalcontrolmps_tpu"}
+PORT = {"optimalcontrolmps_torch", "chip_smoke"}
 
 
 def _imported_roots(path):
@@ -26,7 +28,11 @@ def _imported_roots(path):
     return roots
 
 
-@pytest.mark.parametrize("path", FILES)
+TOOLS = sorted(str(p.relative_to(ROOT)) for p in (ROOT / "tools").glob(
+    "*.py") if _imported_roots(p.relative_to(ROOT)) & PORT)
+
+
+@pytest.mark.parametrize("path", FILES + TOOLS)
 def test_no_jax_import(path):
     assert not _imported_roots(path) & FORBIDDEN
 
@@ -49,11 +55,22 @@ def test_importing_every_module_loads_no_jax():
     "optimalcontrolmps_torch/optimize/nelder_mead.py",
     "optimalcontrolmps_torch/streaming.py",
     "optimalcontrolmps_torch/drivers/amoeba_opt.py",
+    "optimalcontrolmps_torch/vidal.py",
+    "optimalcontrolmps_torch/dmrg.py",
 ])
 def test_the_slice_modules_are_checked(module):
-    """The interior point, Nelder-Mead, the streaming Hessian and the
-    AmoebaOpt driver are among the files checked above."""
+    """The interior point, Nelder-Mead, the streaming Hessian, the AmoebaOpt
+    driver, the Vidal engine and DMRG are among the files checked above."""
     assert module in FILES
+
+
+@pytest.mark.parametrize("tool", [
+    "tools/probe_mps_step.py", "tools/probe_ip_hessian.py",
+    "tools/compare_bond_theta.py", "tools/probe_vidal_dmrg.py"])
+def test_the_port_tools_are_checked(tool):
+    """The port's probes are found among the tools and checked above (the
+    JAX package's own probes import JAX and are not the port's)."""
+    assert tool in TOOLS
 
 
 def test_entry_points_print_usage_without_arguments(capsys):
@@ -61,3 +78,21 @@ def test_entry_points_print_usage_without_arguments(capsys):
     for mod in (optimize_ramp, amoeba_opt):
         assert mod.main([]) == 0
         assert "Usage" in capsys.readouterr().out
+
+
+def test_helpers_take_the_card_for_none(monkeypatch):
+    """device=None means the card for every constructor and entry point,
+    the host-array helpers and the flagship's included: without CUDA they
+    raise instead of building on the CPU."""
+    import numpy as np
+    import torch
+
+    from optimalcontrolmps_torch import control, flagship, sector
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    z = np.zeros(3)
+    for call in (lambda: control.basis_from_numpy(z, z, np.zeros((3, 2))),
+                 lambda: sector.stepper_from_numpy({}),
+                 lambda: flagship.make_problem(),
+                 lambda: flagship.solve_flagship(2)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()

@@ -113,9 +113,9 @@ def test_make_stepper_guards():
                           device="cpu")
     with pytest.raises(ValueError, match="requires trunc_method='range'"):
         tebd.make_stepper(4, 2, J, DT, 9, sweep="brick", device="cpu")
-    with pytest.raises(NotImplementedError, match="Vidal"):
-        tebd.make_stepper(4, 2, J, DT, 9, sweep="vidal", device="cpu")
-    with pytest.raises(NotImplementedError, match="Vidal"):
+    assert tebd.make_stepper(4, 2, J, DT, 9, sweep="vidal",
+                             device="cpu").sweep == "vidal"
+    with pytest.raises(NotImplementedError, match="eigh"):
         tebd.make_stepper(4, 2, J, DT, 9, trunc_method="nssub",
                           device="cpu")
     tebd.make_stepper(4, 2, J, DT, 9, trunc_method="range", device="cpu")
@@ -129,6 +129,9 @@ def test_initialize_state_matches_jax():
     np.testing.assert_allclose(mps.to_statevector(A[None])[0].numpy(),
                                np.asarray(jmps.to_statevector(A_j)),
                                atol=1e-12)
-    with pytest.raises(NotImplementedError, match="DMRG"):
-        groundstate.initialize_state(4, D, 4, J, 2.5, 16, method="dmrg",
-                                     device="cpu")
+    # method="dmrg" (the JAX package's DMRG above its exact limit) lands on
+    # the same state
+    A_d = groundstate.initialize_state(4, D, 4, J, 2.5, 16, method="dmrg",
+                                       device="cpu")
+    ov = mps.overlap(A_d[None], A[None])
+    assert abs(abs(complex(ov[0])) - 1.0) < 1e-8

@@ -43,7 +43,18 @@ Builds the hand-written Hopper kernels of optimalcontrolmps_torch from csrc/
    host-mode iteration at T = SCALED_T: both boundary states by DMRG on the
    card, gated on their sweep energies and particle number; then the bond
    theta on its stages' inputs, the step's time and the SVD's share of a
-   DMRG sweep.
+   DMRG sweep;
+11. the analysis drivers, each through its run() entry: `analysis_chain`
+   at the reference drivers' widths (N=20, Npart=20, d=7, tstep 5e-3,
+   complex64, cut to T = ANALYSIS_T and maxM ANALYSIS_MAXM: ANALYSIS_CUTS):
+   prep_states at chi 64 (DMRG), analyze_quench, calculate_defects
+   (maxBondDim 70, engine = vidal) and analyze_bond_dim with the gradient,
+   one state cache for all, gated on the physics and on the prep state's
+   observables, with the bond theta at the path's stage shapes;
+   `analysis_shipped`: extend_time_evolution on ip_sector's converged
+   ramp on the Vidal and the sector engine (equal to 1e-8), and
+   test_runtimes with the Hessian; `analysis_card_vs_cpu`: three drivers
+   at the shipped widths on the card and on the CPU in complex128.
 
 Each main path is driven with every launch counter set to 0 just before it
 and read just after; the `kernels` line sums each kernel's launches over
@@ -133,6 +144,41 @@ SCALED_T, SCALED_N = 0.2, 20
 SCALED_E_RISE, SCALED_NPART_TOL = 1e-6, 1e-4
 IP_FILES = ("BHrampInitialFinal.txt", "ExpectationN.txt", "GRAPEHessian.txt",
             "GROUPHessian.txt", "ProgressCache.txt", "checkpoint.json")
+# the analysis drivers at the reference drivers' own widths (AnalyzeQuench,
+# CalculateDefects, AnalyzeBondDim: N=20, Npart=20, d=7, tstep 5e-3), in
+# complex64 on the card. ANALYSIS_CUTS lists every cut of scale.
+ANALYSIS_N, ANALYSIS_D, ANALYSIS_TSTEP = 20, 7, 5e-3
+ANALYSIS_T = 0.1                    # N_t = 21
+ANALYSIS_CHI_PREP, ANALYSIS_MAXM = 64, 128
+ANALYSIS_BOND_DIMS = (20, 30, 40, 50, ANALYSIS_MAXM)
+ANALYSIS_CUTS = {
+    "T": "3.0 (analyze_quench) / 5.0 (calculate_defects, analyze_bond_dim)"
+         " -> 0.1: N_t 601 / 1001 -> 21, the smoke's time limit",
+    "maxM": "1000 -> 128 in analyze_quench and analyze_bond_dim: chi = 128 "
+            "is the repo's reference scale (artifacts/baseline3); at 1000 "
+            "the theta is 8000^2 per bond",
+}
+# the stage shapes the analysis gives the bond theta: the even (10) and odd
+# (9) bonds of one lane at each chi, p = 8, complex64 (chi = 128 is checked
+# on the analysis state's own stage inputs)
+ANALYSIS_STAGE_CHIS = (20, 30, 40, 50, 70)
+# physics gates of the long chain (complex64): particle number, entropies,
+# fidelities, the prep state's single-particle density matrix, and the
+# shared-environment correlators against the pairwise ones
+ANALYSIS_NPART_TOL, ANALYSIS_S_FLOOR, ANALYSIS_F_CEIL = 1e-4, -1e-6, 1e-5
+ANALYSIS_HERM_TOL, ANALYSIS_TRACE_TOL, ANALYSIS_WINDOW_TOL = 1e-5, 1e-4, 1e-5
+ANALYSIS_WINDOW = (6, 12)   # analyze_quench's default sites (0-based)
+# the analysis drivers on the card against the CPU in complex128 (the
+# shipped widths, L=5, d=4, T=0.1): values to 1e-8, the gradient to 1e-8
+# relative, the bound CARD_CPU_GRAD_TOL of the eigh-split gradients above
+ANALYSIS_CARD_CPU_TOL = 1e-8
+ANALYSIS_CARD_CPU_BOND_DIMS = (10, 25)
+# extend_time_evolution on the Vidal engine against the sector engine, both
+# exact at the shipped widths (chi = 25), complex128
+EXTEND_VIDAL_SECTOR_TOL = 1e-8
+# test_runtimes at T = RUNTIMES_T: the same cost at every batch size
+# (complex64 on the card)
+RUNTIMES_T, RUNTIMES_COST_REL_TOL = 0.2, 1e-5
 
 # published H100 SXM peaks (NVIDIA data sheet): memory; fp32 outside the
 # tensor cores; fp64 through the tensor cores (DMMA), the card's peak for the
@@ -599,7 +645,8 @@ def npart_error(prefix: str, n_steps: int) -> float:
 
 def drive_ip_sector() -> dict:
     """optimize_ramp.run on the shipped InputFile with useBFGS = no (engine
-    auto -> sector, double precision, optTol 1e-8, maxIter 500), seed 1."""
+    auto -> sector, double precision, optTol 1e-8, maxIter 500), seed 1.
+    The result keeps the converged BHrampInitialFinal.txt (`ramp_text`)."""
     from optimalcontrolmps_torch.drivers import optimize_ramp
 
     cfg = example_config(useBFGS="no")
@@ -608,6 +655,8 @@ def drive_ip_sector() -> dict:
         out, prefix, wall = run_driver(optimize_ramp, cfg, tmp)
         files = {f: os.path.exists(prefix + f) for f in IP_FILES}
         n_err = npart_error(prefix, 201)
+        with open(prefix + "BHrampInitialFinal.txt") as f:
+            ramp_text = f.read()
     st = out["status"]
     res = {"f": st["f"], "iterations": st["iterations"],
            "converged": st["converged"], "kkt": st["kkt_error"],
@@ -628,6 +677,8 @@ def drive_ip_sector() -> dict:
         fail(f"ip_sector: missing output files {files}")
     if not n_err < 1e-8:
         fail(f"ip_sector: ExpectationN.txt off Npart by {n_err}")
+    # the converged ramp, for the analysis phase's extend_time_evolution
+    res["ramp_text"] = ramp_text
     return res
 
 
@@ -1079,6 +1130,335 @@ def drive_vidal_scaled() -> dict:
     return res
 
 
+def analysis_config(path: str, **keys) -> str:
+    """Write an InputFile of the long chain (ANALYSIS_N sites at unit
+    filling, d = ANALYSIS_D, tstep ANALYSIS_TSTEP, T = ANALYSIS_T,
+    complex64, engine vidal) with `keys` added; returns its path."""
+    from optimalcontrolmps_torch import config
+    values = {"N": ANALYSIS_N, "Npart": ANALYSIS_N, "d": ANALYSIS_D,
+              "tstep": ANALYSIS_TSTEP, "T": ANALYSIS_T, "M": 1,
+              "precision": "single", "engine": "vidal", **keys}
+    config.write_input_file(path, {k: str(v) for k, v in values.items()})
+    return path
+
+
+def counted(fn, *args, **kw):
+    """(fn(*args, **kw), its bond-theta launches, wall s): the counts are
+    set to 0 just before the call and read just after."""
+    from optimalcontrolmps_torch.ops import bond_theta as bt
+    reset_all_counts()
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return out, bt.bond_theta_launches, time.perf_counter() - t0
+
+
+def rows_of(path: str) -> int:
+    """Rows of a text file of numbers (0 when it is missing)."""
+    if not os.path.exists(path):
+        return 0
+    return np.loadtxt(path, ndmin=2).shape[0]
+
+
+def check_prep_observables(psi_h) -> dict:
+    """The single-particle density matrix of the long chain's U_i prep
+    state in complex64 on the card (Hermitian, trace Npart, condensate
+    occupation between 1 and Npart), and the shared-environment window
+    correlators (ANALYSIS_WINDOW) against pairwise correlation_function."""
+    from optimalcontrolmps_torch import observables as obs
+    from optimalcontrolmps_torch.sites import op
+
+    A = torch.as_tensor(psi_h.astype(np.complex64), device="cuda")[None]
+    d, n = ANALYSIS_D, ANALYSIS_N
+    adag, a, num = op("Adag", d), op("A", d), op("N", d)
+    C = obs.correlation_matrix(A, adag, a)[0]
+    herm = float((C - C.conj().T).abs().max())
+    trace = float(torch.diagonal(C).real.sum())
+    cond = float(obs.condensate_fraction(A, adag, a)[0])
+    start, end = ANALYSIS_WINDOW
+    sp, dd, rdd = (x[0] for x in obs.window_correlations(A, a, adag, num,
+                                                         start, end))
+    eye = np.eye(d + 1)
+
+    def corr(o1, i, o2, j):
+        return float(obs.correlation_function(A, o1, i, o2, j)[0].real)
+
+    n0 = corr(num, start, eye, start)
+    werr = 0.0
+    for k, j in enumerate(range(start + 1, end + 1)):
+        ddj = corr(num, start, num, j)
+        werr = max(werr, abs(float(sp[k]) - corr(adag, start, a, j)),
+                   abs(float(dd[k]) - ddj),
+                   abs(float(rdd[k]) - (ddj - n0 * corr(num, j, eye, j))))
+    res = {"hermitian_err": herm, "trace": trace, "condensate": cond,
+           "window_vs_pairs": werr}
+    print(f"analysis prep state (U_i, chi {ANALYSIS_CHI_PREP}, complex64): "
+          f"|C - C^H| {herm:.2e}, trace {trace:.6f}, condensate occupation "
+          f"{cond:.4f}, window vs pairwise correlators {werr:.2e}")
+    if not herm < ANALYSIS_HERM_TOL:
+        fail(f"analysis: the density matrix is not Hermitian: {herm}")
+    if not abs(trace - n) < ANALYSIS_TRACE_TOL:
+        fail(f"analysis: the density matrix's trace is {trace}, not {n}")
+    if not 1.0 < cond < n:
+        fail(f"analysis: condensate occupation {cond} not in (1, {n})")
+    if not werr < ANALYSIS_WINDOW_TOL:
+        fail(f"analysis: window_correlations vs pairwise: {werr}")
+    return res
+
+
+def analysis_stage_thetas(psi_h) -> tuple:
+    """The bond theta against its twin at the analysis path's stage shapes:
+    random inputs (numpy seed 0) at (10 and 9, chi, 8) complex64 for chi
+    in ANALYSIS_STAGE_CHIS, and both stages of the U_i prep state padded to
+    ANALYSIS_MAXM, as analyze_quench steps it; and the Vidal step's time
+    there with eigh's share. Returns (readings, step reading)."""
+    from optimalcontrolmps_torch import mps, tebd, vidal
+
+    checks = [theta_reading(*theta_inputs(B, chi, ANALYSIS_D + 1,
+                                          torch.complex64),
+                            "analysis stage ")
+              for chi in ANALYSIS_STAGE_CHIS
+              for B in (ANALYSIS_N // 2, (ANALYSIS_N - 1) // 2)]
+    chi = ANALYSIS_MAXM
+    st = tebd.make_stepper(ANALYSIS_N, ANALYSIS_D, 1.0, ANALYSIS_TSTEP, chi,
+                           dtype=torch.complex64, sweep="vidal",
+                           device="cuda")
+    state = vidal.from_mps(mps.pad_chi(psi_h, chi).astype(np.complex64),
+                           device="cuda")
+    checks += vidal_stage_thetas(st, state, 1, "analysis")
+    return checks, vidal_step_reading(st, state, 1, 3)
+
+
+def drive_analysis_chain() -> dict:
+    """The long chain (N=20, Npart=20, d=7, tstep 5e-3, T = ANALYSIS_T,
+    complex64, on the card), every driver through its run() entry into one
+    temporary directory with one state cache: prep_states at chi_prep 64;
+    analyze_quench --ramp quench at maxBondDim ANALYSIS_MAXM; calculate_
+    defects at its own maxBondDim 70 on engine = vidal; analyze_bond_dim at
+    ANALYSIS_BOND_DIMS with the gradient. Gated on the physics (particle
+    number, entropies, fidelities, discarded weights, files of N_t rows)."""
+    from optimalcontrolmps_torch.drivers import (analyze_bond_dim,
+                                                 analyze_quench,
+                                                 calculate_defects,
+                                                 prep_states)
+
+    n, n_t = ANALYSIS_N, int(round(ANALYSIS_T / ANALYSIS_TSTEP)) + 1
+    res = {"N": n, "Npart": n, "d": ANALYSIS_D, "tstep": ANALYSIS_TSTEP,
+           "T": ANALYSIS_T, "n_steps": n_t, "dtype": "complex64",
+           "cuts": ANALYSIS_CUTS, "drivers": {}}
+    launches = 0
+    with tempfile.TemporaryDirectory() as tmp, DmrgRecorder() as rec:
+        cache = os.path.join(tmp, f"L{n}d{ANALYSIS_D}n{n}"
+                                  f"chi{ANALYSIS_CHI_PREP}.npz")
+        (psi_i_h, _), _, wall = counted(
+            prep_states.ensure_boundary_states, n, ANALYSIS_D, n, 1.0, 2.5,
+            50.0, ANALYSIS_CHI_PREP, cache, chi_prep=ANALYSIS_CHI_PREP)
+        res["drivers"]["prep_states"] = {"wall_s": wall,
+                                         "dmrg_states": len(rec.states)}
+        res["prep_observables"] = check_prep_observables(psi_i_h)
+
+        def entry(name, fn, *args, **kw):
+            nonlocal launches
+            d0 = sum(s["s"] for s in rec.states)
+            out, k, wall = counted(fn, *args, **kw)
+            res["drivers"][name] = {
+                "wall_s": wall, "bond_theta_launches": k,
+                "dmrg_s": sum(s["s"] for s in rec.states) - d0}
+            launches += k
+            if not k > 0:
+                fail(f"analysis: {name} launched no bond_theta kernel")
+            return out
+
+        q = entry("analyze_quench", analyze_quench.run,
+                  analysis_config(os.path.join(tmp, "InputQuench"),
+                                  maxBondDim=ANALYSIS_MAXM),
+                  ramp="quench", out_prefix=os.path.join(tmp, "q_"),
+                  state_cache=cache)
+        dfx = entry("calculate_defects", calculate_defects.run,
+                    analysis_config(os.path.join(tmp, "InputDefects")))
+        bd = entry("analyze_bond_dim", analyze_bond_dim.run,
+                   analysis_config(os.path.join(tmp, "InputBondDim")),
+                   bond_dims=ANALYSIS_BOND_DIMS,
+                   out_prefix=os.path.join(tmp, "b_"), state_cache=cache)
+        files = {f"q_{f}_Quench.txt": rows_of(os.path.join(
+            tmp, f"q_{f}_Quench.txt")) for f in (
+                "EntanglementEntropies", "SingleParticleCorr",
+                "DensityDensityCorr", "RescaledDensityDensityCorr")}
+        for m in ANALYSIS_BOND_DIMS:
+            name = f"b_TimeEvolBondDimT{ANALYSIS_T:.1f}maxM{m}.txt"
+            files[name] = rows_of(os.path.join(tmp, name))
+        schmidt_rows = {m: rows_of(os.path.join(
+            tmp, f"b_SchmidtDataT{ANALYSIS_T:.1f}maxM{m}.txt"))
+            for m in ANALYSIS_BOND_DIMS}
+        res["dmrg_s"] = sum(s["s"] for s in rec.states)
+        res["dmrg_states"] = [{"U": s["U"], "chi": int(s["A"].shape[1]),
+                               "s": s["s"], "sweeps": len(s["history"])}
+                              for s in rec.states]
+    npart_err = float(np.abs(dfx["expn"].sum(axis=1) - n).max())
+    s_min = min(float(q["entropies"].min()),
+                *(float(r["vn_entropy"].min()) for r in bd.values()))
+    f_max = max(float(dfx["fids"].max()),
+                *(float(r["fids"].max()) for r in bd.values()))
+    disc_min = min(float(r["disc"].min()) for r in bd.values())
+    grad_ok = all(np.isfinite(r["grad"]).all() for r in bd.values())
+    res.update({
+        "quench": {"chi": q["chi"], "S_final_max": float(
+            q["entropies"][-1].max()), "wall_s": q["wall"]},
+        "defects": {"npart_max_err": npart_err, "F_final": float(
+            dfx["fids"][-1]), "rho_final": float(dfx["rho"][-1]),
+            "f2_final": float(dfx["f2"][-1])},
+        "bond_dim": {str(m): {"chi": r["chi"], "F_final": float(
+            r["fids"][-1]), "max_disc": float(r["disc"].max()),
+            "t_fidelity": r["t_fidelity"], "t_gradient": r["t_gradient"]}
+            for m, r in bd.items()},
+        "files": files, "schmidt_rows": schmidt_rows,
+        "entropy_min": s_min, "fidelity_max": f_max, "disc_min": disc_min,
+        "bond_theta_launches": launches})
+    res["thetas"], res["step"] = analysis_stage_thetas(psi_i_h)
+    print(json.dumps({"analysis_chain": {k: v for k, v in res.items()
+                                         if k != "thetas"}}))
+    if not npart_err < ANALYSIS_NPART_TOL:
+        fail(f"analysis: calculate_defects' particle number off by "
+             f"{npart_err}")
+    if not s_min >= ANALYSIS_S_FLOOR:
+        fail(f"analysis: an entropy is {s_min}")
+    if not f_max <= 1.0 + ANALYSIS_F_CEIL:
+        fail(f"analysis: a fidelity is {f_max}")
+    if not disc_min >= 0.0:
+        fail(f"analysis: a discarded weight is {disc_min}")
+    if not grad_ok:
+        fail("analysis: analyze_bond_dim's gradient is not finite")
+    if not all(r == n_t for r in files.values()):
+        fail(f"analysis: files without {n_t} rows: {files}")
+    res["launches"] = launches
+    return res
+
+
+def drive_analysis_shipped(ramp_text: str) -> dict:
+    """The shipped file's widths: extend_time_evolution on ip_sector's
+    converged ramp with engine = vidal and with engine = sector (complex128,
+    chi = 25 = the exact rank bound: the extended fidelities agree to
+    EXTEND_VIDAL_SECTOR_TOL), then test_runtimes at its own widths (L=5,
+    d=5, maxM 40) at T = RUNTIMES_T, batches 1, 2, 4, 8, with the Hessian: the
+    cost agrees across batch sizes to RUNTIMES_COST_REL_TOL."""
+    from optimalcontrolmps_torch import config
+    from optimalcontrolmps_torch.drivers import (extend_time_evolution,
+                                                 test_runtimes)
+
+    res, launches, fids = {}, 0, {}
+    tag = f"{example_config().get_real('T'):.1f}"
+    with tempfile.TemporaryDirectory() as tmp:
+        ramp = os.path.join(tmp, "BHrampInitialFinal.txt")
+        with open(ramp, "w") as f:
+            f.write(ramp_text)
+        n_rows = rows_of(ramp) + 100
+        for engine in ("vidal", "sector"):
+            path = os.path.join(tmp, f"Input_{engine}")
+            config.write_input_file(path, example_config(
+                engine=engine).values)
+            prefix = os.path.join(tmp, f"{engine}_")
+            out, k, wall = counted(extend_time_evolution.run, path, ramp,
+                                   out_prefix=prefix)
+            rows = {f: rows_of(prefix + f) for f in (
+                f"BHrampInitialFinal_extendedT{tag}.txt",
+                f"ExpectationN_extendedT{tag}.txt")}
+            fids[engine] = (out["fid_init"], out["fid_final"])
+            res[f"extend_{engine}"] = {
+                "wall_s": wall, "bond_theta_launches": k, "rows": rows,
+                "F_final": float(out["fid_final"][-1]),
+                "npart_max_err": float(np.abs(out["expn"].sum(axis=1)
+                                              - NPART).max())}
+            launches += k
+    dF = max(float(np.abs(a - b).max())
+             for a, b in zip(fids["vidal"], fids["sector"]))
+    res["extend_vidal_vs_sector"] = dF
+    rt, k, wall = counted(test_runtimes.run, horizons=(RUNTIMES_T,),
+                          batches=(1, 2, 4, 8), with_hessian=True)
+    launches += k
+    costs = np.concatenate(rt["batch_costs"][RUNTIMES_T])
+    rt_rel = float(np.abs(costs - costs[0]).max() / abs(costs[0]))
+    res["test_runtimes"] = {"wall_s": wall, "bond_theta_launches": k,
+                            "grad_s": rt["grad"], "hess_s": rt["hess"],
+                            "cost": float(costs[0]), "cost_rel_spread":
+                            rt_rel}
+    print(json.dumps({"analysis_shipped": res}))
+    for engine in ("vidal", "sector"):
+        r = res[f"extend_{engine}"]
+        if not all(v == n_rows for v in r["rows"].values()):
+            fail(f"analysis: extend ({engine}) files: {r['rows']}")
+        if not r["npart_max_err"] < 1e-8:
+            fail(f"analysis: extend ({engine}) particle number off by "
+                 f"{r['npart_max_err']}")
+    if not res["extend_vidal"]["bond_theta_launches"] > 0:
+        fail("analysis: extend on engine = vidal launched no bond_theta")
+    if not dF < EXTEND_VIDAL_SECTOR_TOL:
+        fail(f"analysis: extend vidal vs sector fidelities differ by {dF}")
+    if not k > 0:
+        fail("analysis: test_runtimes launched no bond_theta kernel")
+    if not rt_rel < RUNTIMES_COST_REL_TOL:
+        fail(f"analysis: test_runtimes' cost moves across batches by "
+             f"{rt_rel}")
+    res["launches"] = launches
+    return res
+
+
+def drive_analysis_card_vs_cpu() -> dict:
+    """analyze_quench (--ramp quench, sites 1..4), calculate_defects
+    (engine = vidal) and analyze_bond_dim (ANALYSIS_CARD_CPU_BOND_DIMS) on
+    the shipped file's widths at T = ANALYSIS_T, complex128, on the card
+    and with device="cpu": fidelities, entropies, correlators and the
+    defect columns to ANALYSIS_CARD_CPU_TOL, the gradient to it relative."""
+    from optimalcontrolmps_torch import config
+    from optimalcontrolmps_torch.drivers import (analyze_bond_dim,
+                                                 analyze_quench,
+                                                 calculate_defects)
+
+    outs, launches, walls = {}, 0, {}
+    for dev in ("cuda", "cpu"):
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "InputFile")
+            config.write_input_file(path, example_config(
+                T=ANALYSIS_T, engine="vidal").values)
+            kw = dict(device=dev, dtype=torch.complex128)
+            t0 = time.perf_counter()
+            runs = [
+                counted(analyze_quench.run, path, ramp="quench",
+                        startpoint=1, endpoint=4, state_cache=os.path.join(
+                            tmp, "states.npz"),
+                        out_prefix=os.path.join(tmp, "q_"), **kw),
+                counted(calculate_defects.run, path, device=dev),
+                counted(analyze_bond_dim.run, path,
+                        bond_dims=ANALYSIS_CARD_CPU_BOND_DIMS,
+                        state_cache=os.path.join(tmp, "states.npz"),
+                        out_prefix=os.path.join(tmp, "b_"), **kw)]
+            walls[dev] = time.perf_counter() - t0
+        outs[dev] = [r[0] for r in runs]
+        if dev == "cuda":
+            launches = sum(r[1] for r in runs)
+    (qc, dc, bc), (qh, dh, bh) = outs["cuda"], outs["cpu"]
+    diffs = {f"quench_{k}": float(np.abs(qc[k] - qh[k]).max())
+             for k in ("entropies", "sp", "dd", "rdd")}
+    diffs.update({f"defects_{k}": float(np.abs(dc[k] - dh[k]).max())
+                  for k in ("fids", "rho", "f2")})
+    for m in ANALYSIS_CARD_CPU_BOND_DIMS:
+        for k in ("fids", "s2", "disc"):
+            diffs[f"bond_dim_{m}_{k}"] = float(np.abs(bc[m][k]
+                                                      - bh[m][k]).max())
+        diffs[f"bond_dim_{m}_grad_rel"] = float(
+            np.abs(bc[m]["grad"] - bh[m]["grad"]).max()
+            / np.abs(bh[m]["grad"]).max())
+    res = {"diffs": diffs, "card_s": walls["cuda"], "cpu_s": walls["cpu"],
+           "bond_theta_launches": launches}
+    print(json.dumps({"analysis_card_vs_cpu": res}))
+    worst = max(diffs, key=diffs.get)
+    if not diffs[worst] < ANALYSIS_CARD_CPU_TOL:
+        fail(f"analysis: card and CPU differ in {worst}: {diffs[worst]}")
+    if not launches > 0:
+        fail("analysis: the card runs launched no bond_theta kernel")
+    res["launches"] = launches
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False; this script needs a GPU")
@@ -1123,7 +1503,7 @@ def main() -> None:
     kernels["bond_theta"]["launches"] = drive_mps(LANES)
     phases.done("MPS main path (optimize_ramp.run, engine = mps)")
 
-    drive_ip_sector()
+    ip_sector = drive_ip_sector()
     phases.done("ip_sector (optimize_ramp.run, useBFGS = no)")
     drive_ip_flagship_cold()
     phases.done("ip_flagship_cold (minimize_interior_point)")
@@ -1140,8 +1520,17 @@ def main() -> None:
     phases.done("dmrg_exact (dmrg_ground_state)")
     vs = drive_vidal_scaled()
     phases.done("vidal_scaled (the reference-scale config, DMRG states)")
-    for r in (vx, vs):
+    an = drive_analysis_chain()
+    phases.done("analysis_chain (prep_states, analyze_quench, "
+                "calculate_defects, analyze_bond_dim at N=20, d=7)")
+    ash = drive_analysis_shipped(ip_sector["ramp_text"])
+    phases.done("analysis_shipped (extend_time_evolution vidal/sector, "
+                "test_runtimes)")
+    acc = drive_analysis_card_vs_cpu()
+    phases.done("analysis_card_vs_cpu (three drivers at L=5, complex128)")
+    for r in (vx, vs, an, ash, acc):
         bt["launches"] += r["launches"]
+    for r in (vx, vs, an):
         bt["checks"] += r["thetas"]
     bt["max_abs_err"] = max(c["max_abs_err"] for c in bt["checks"])
 

@@ -25,12 +25,17 @@ import torch
 from .. import control as controllib
 from .. import groundstate, sector, seeds, tebd, vidal
 from .. import io as iolib
-from ..backends import sector_fits
-from ..config import InputGroup
+from ..backends import engine_for, sector_fits
+from ..config import InputGroup, parse_input_file
 from ..device import resolve_device
+from ..mps import expectation_values
+from ..sites import op
+from ..streaming import rollout_measure
 
-__all__ = ["ProblemSetup", "build_problem", "config_device",
-           "effective_chi", "print_banner", "time_axis"]
+__all__ = ["AnalysisSetup", "ProblemSetup", "analysis_setup",
+           "build_problem", "config_device", "default_dtype",
+           "effective_chi", "exp_ramp", "populations", "print_banner",
+           "quench_ramp", "time_axis"]
 
 J_HOP = 1.0
 U_INITIAL = 2.5
@@ -72,6 +77,52 @@ def config_device(cfg: InputGroup) -> torch.device:
         return resolve_device(None)
     raise ValueError(f"backend {backend!r}: the port runs on 'cuda' (the "
                      f"default) or 'cpu'")
+
+
+def default_dtype(device) -> torch.dtype:
+    """The analysis drivers' dtype when the caller names none: complex128
+    on the CPU, complex64 on the card (the JAX package's rule for its CPU
+    and accelerator backends)."""
+    return (torch.complex128 if torch.device(device).type == "cpu"
+            else torch.complex64)
+
+
+@dataclasses.dataclass
+class AnalysisSetup:
+    """The chain, time grid, device and dtypes of an analysis driver."""
+    cfg: InputGroup | None
+    tstep: float
+    T: float
+    L: int
+    npart: int
+    d: int
+    device: torch.device
+    dtype: torch.dtype
+    real: torch.dtype          # the controls' dtype
+    np_complex: type           # the host states' dtype
+
+
+def analysis_setup(cfg_path, device, dtype, T: float) -> AnalysisSetup:
+    """Parse the InputFile of analyze_quench or analyze_bond_dim (tstep,
+    T, N, Npart, d with the reference's config defaults; device None: the
+    config's backend), or, without one, the reference's long chain N=20,
+    Npart=20, d=7, tstep 5e-3 at time T on the card. dtype None: the
+    device's `default_dtype`."""
+    cfg = None
+    if cfg_path is not None:
+        cfg = parse_input_file(cfg_path)
+        tstep, T = cfg.get_real("tstep", 1e-2), cfg.get_real("T", 6)
+        L, npart = cfg.get_int("N", 8), cfg.get_int("Npart", 8)
+        d = cfg.get_int("d", 8)
+        device = config_device(cfg) if device is None else device
+    else:
+        tstep, L, npart, d = 5e-3, 20, 20, 7
+    device = resolve_device(device)
+    dtype = default_dtype(device) if dtype is None else dtype
+    double = dtype == torch.complex128
+    return AnalysisSetup(cfg, tstep, T, L, npart, d, device, dtype,
+                         torch.float64 if double else torch.float32,
+                         np.complex128 if double else np.complex64)
 
 
 def effective_chi(max_bond_dim: int, L: int, p: int) -> int:
@@ -188,3 +239,34 @@ def print_banner(p: ProblemSetup, extra=None):
 
 def time_axis(p: ProblemSetup) -> np.ndarray:
     return np.arange(p.n_steps) * p.tstep
+
+
+def exp_ramp(u_i: float, u_f: float, length: int) -> np.ndarray:
+    """The reference's expRamp: u_i exp(b i), b = log(u_f / u_i) / length."""
+    b = np.log(u_f / u_i) / length
+    return u_i * np.exp(b * np.arange(length))
+
+
+def quench_ramp(u_i: float, u_f: float, length: int) -> np.ndarray:
+    """The reference's quenchRamp: u_f at every time but the first."""
+    r = np.full(length, u_f)
+    r[0] = u_i
+    return r
+
+
+def populations(p: ProblemSetup, u: torch.Tensor) -> torch.Tensor:
+    """(N_t, L) <n_i>(t) of psi_i propagated under u (N_t,) by the
+    problem's engine: one state in flight on the MPS and Vidal engines,
+    the (N_t, ns) trajectory on the sector engine (its states are small)."""
+    st, psi_i = p.stepper, p.psi_i
+    if p.kind == "sector":
+        return sector.expectation_n(st, engine_for(st).rollout(st, psi_i, u))
+    n_op = op("N", p.d)
+    if p.kind == "vidal":
+        return rollout_measure(
+            lambda s, ua, ub: vidal.vidal_step(st, s, ua, ub, forward=True),
+            vidal.VidalState(psi_i.B[None], psi_i.lam[None]), u,
+            lambda s: expectation_values(s.B, n_op).real[0])
+    return rollout_measure(
+        lambda s, ua, ub: tebd.tebd_step(st, s, ua, ub, forward=True),
+        psi_i[None], u, lambda s: expectation_values(s, n_op).real[0])

@@ -49,18 +49,13 @@ from .. import io
 from ..backends import engine_for
 from ..config import parse_input_file
 from ..engine import regularization
-from ..mps import expectation_values
 from ..optimize import (cold_duals, minimize_interior_point,
                         minimize_interior_point_host, minimize_lbfgs,
                         minimize_lbfgs_batch, minimize_newton)
 from ..optimize.penalty import bound_penalty
 from ..precision import enforce_matmul_precision
-from ..sector import expectation_n
-from ..sites import op
-from ..streaming import rollout_measure
-from ..tebd import tebd_step
-from ..vidal import VidalState, vidal_step
-from .common import build_problem, print_banner, time_axis
+from ..vidal import VidalState
+from .common import build_problem, populations, print_banner, time_axis
 
 __all__ = ["run", "main"]
 
@@ -431,19 +426,7 @@ def run(cfg_path: str, seed: int = 1, out_prefix: str = "") -> dict:
         io.write_matrix(out_prefix + "GROUPHessian.txt",
                         basis.convert_hessian(H_grape).cpu().numpy())
 
-    n_op = op("N", p.d)
-    if p.kind == "sector":
-        expn = expectation_n(st, eng.rollout(st, psi_i, u_final))
-    elif p.kind == "vidal":
-        expn = rollout_measure(
-            lambda s, ua, ub: vidal_step(st, s, ua, ub, forward=True),
-            VidalState(psi_i.B[None], psi_i.lam[None]), u_final,
-            lambda s: expectation_values(s.B, n_op).real[0])
-    else:
-        expn = rollout_measure(
-            lambda s, ua, ub: tebd_step(st, s, ua, ub, forward=True),
-            psi_i[None], u_final,
-            lambda s: expectation_values(s, n_op).real[0])
+    expn = populations(p, u_final)
     io.write_expectation_file(out_prefix + "ExpectationN.txt", times,
                               expn.cpu().numpy())
 

@@ -2,10 +2,10 @@
 
 Counterpart of optimalcontrolmps_tpu/io.py (host numpy and json, copied so
 the port imports nothing of the JAX package): the ramp, progress,
-expectation and matrix text files, tab-separated like the reference's, and
-the JSON checkpoint of the control vector and the boundary-state cache,
-all in the JAX package's formats, so a checkpoint or a state cache written
-by one package is read by the other.
+expectation, matrix and row-matrix text files, tab-separated like the
+reference's, and the JSON checkpoint of the control vector and the
+boundary-state cache, all in the JAX package's formats, so a checkpoint or
+a state cache written by one package is read by the other.
 """
 
 from __future__ import annotations
@@ -18,8 +18,8 @@ import numpy as np
 __all__ = [
     "write_ramp_file", "read_ramp_file", "append_progress",
     "nprop_per_iteration", "write_expectation_file", "write_matrix",
-    "read_matrix", "save_checkpoint", "load_checkpoint", "save_states",
-    "load_states",
+    "read_matrix", "write_rowmat", "save_checkpoint", "load_checkpoint",
+    "save_states", "load_states",
 ]
 
 
@@ -75,6 +75,13 @@ def write_matrix(path, M):
 
 def read_matrix(path):
     return np.loadtxt(path)
+
+
+def write_rowmat(path, rows):
+    """The reference's saveRowmat format: one tab-separated row per line."""
+    with open(path, "w") as f:
+        for row in rows:
+            f.write("\t".join(_fmt(v) for v in np.asarray(row)) + "\n")
 
 
 def save_checkpoint(path, control, extra=None):

@@ -16,7 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.trunc import cholesky_orthonormalize, split_truncate
+from .ops.trunc import (cholesky_orthonormalize, householder_qr,
+                        split_truncate)
 
 __all__ = [
     "product_state", "from_statevector", "pad_chi", "to_statevector",
@@ -192,7 +193,7 @@ def move_right(Ai, Aj, method: str = "qr"):
         q, Lc = cholesky_orthonormalize(m)
         rmat = Lc.conj().transpose(-2, -1)
     elif method == "qr":
-        q, rmat = torch.linalg.qr(m, mode="reduced")
+        q, rmat = householder_qr(m)
     else:
         raise ValueError(f"gauge method {method!r}: the port has 'qr' and "
                          "'cholesky' ('mgs' is the JAX package's TPU route)")
@@ -211,7 +212,7 @@ def move_left(Ai, Aj, method: str = "qr"):
         q, Lc = cholesky_orthonormalize(mh)   # m^H = q Lc^H
         rmat_h = Lc
     elif method == "qr":
-        q, rT = torch.linalg.qr(mh, mode="reduced")   # m^H = q rT
+        q, rT = householder_qr(mh)                    # m^H = q rT
         rmat_h = rT.conj().transpose(-2, -1)
     else:
         raise ValueError(f"gauge method {method!r}: the port has 'qr' and "

@@ -22,11 +22,13 @@ backend without factorizations; they are not ported.
 
 from __future__ import annotations
 
+import math
 from functools import lru_cache
 
 import torch
 
-__all__ = ["split_truncate", "cholesky_orthonormalize", "eigh"]
+__all__ = ["split_truncate", "cholesky_orthonormalize", "eigh",
+           "householder_qr"]
 
 _RSVD_ITERS = 3
 _RSVD_OVERSAMPLE = 8
@@ -83,8 +85,62 @@ def _fixed_gaussian(m: int, k: int, dtype: torch.dtype,
     return _fixed_gaussian_cpu(m, k, dtype).to(device)
 
 
+def _real(dtype: torch.dtype) -> torch.dtype:
+    return torch.float64 if dtype in _DOUBLE else torch.float32
+
+
+def _qr_floor(dtype: torch.dtype) -> float:
+    """100 sqrt(tiny) of dtype's real type (1.1e-17 in single, 1.5e-152 in
+    double precision): a column at most this long has a squared norm near
+    or below the underflow."""
+    return 100 * torch.finfo(_real(dtype)).tiny ** 0.5
+
+
+def _fill_short_columns(m):
+    """m (..., n, r) with every short column replaced by a generic one:
+    each matrix's cut is eps times its longest column norm (eps of the
+    precision), and at least `_qr_floor`; a column at most that long
+    (exact zeros, the rounding noise of an unused bond index, entries
+    whose squares underflow) becomes the cut times a fixed Gaussian
+    column, a direction never in the span of the other columns of a tall
+    matrix. Every other column is kept as it is."""
+    norms = torch.linalg.vector_norm(m, dim=-2, keepdim=True)
+    cut = (torch.finfo(_real(m.dtype)).eps * norms.amax(-1, keepdim=True)
+           ).clamp(min=_qr_floor(m.dtype))
+    g = _fixed_gaussian(m.shape[-2], m.shape[-1], m.dtype, m.device)
+    return torch.where(norms <= cut, cut * g, m)
+
+
+def _takes_batched_geqrf(m) -> bool:
+    """Whether PyTorch factors m (..., n, r) by cuBLAS's batched geqrf: on
+    the card, for n <= 256 and a batch of at least max(2, n // 16)
+    matrices (ATen's geqrf dispatch); otherwise cuSOLVER's geqrf, one
+    matrix at a time."""
+    n = m.shape[-2]
+    return (m.is_cuda and n <= 256
+            and math.prod(m.shape[:-2]) >= max(2, n // 16))
+
+
+def householder_qr(m):
+    """Thin Householder QR (Q, R) of a batch of matrices (..., n, r).
+    cuBLAS's batched geqrf (`_takes_batched_geqrf`) returned NaN for a
+    batch of exact-Hessian row states of test_runtimes (complex64): for a
+    member with exactly-zero columns, and, when those had come out of
+    cuSOLVER's one-matrix QR as rounding noise instead, for a member whose
+    shortest columns lay far below eps of its longest; LAPACK's and
+    cuSOLVER's geqrf factor both. So before that QR the short columns are
+    filled (`_fill_short_columns`), and Q R differs from the input in
+    those columns only, by about sqrt(2 n) cuts (setting their columns of
+    R to 0 afterwards, to keep the input exactly, let the next eigh fail
+    on the card). Every other QR is left as it is, so the single-lane paths,
+    the card-vs-CPU witnesses among them, factor what the CPU factors."""
+    if _takes_batched_geqrf(m):
+        m = _fill_short_columns(m)
+    return torch.linalg.qr(m, mode="reduced")
+
+
 def _thin_qr_q(m):
-    return torch.linalg.qr(m, mode="reduced").Q
+    return householder_qr(m)[0]
 
 
 def _top_eigenspace_rsvd(rho, chi: int, iters: int = _RSVD_ITERS):

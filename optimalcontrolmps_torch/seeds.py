@@ -8,8 +8,8 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["linspace", "sigmoid", "linsigmoid_seed", "adiabatic_seed",
-           "random_coeff_seed"]
+__all__ = ["linspace", "generate_range", "sigmoid", "linsigmoid_seed",
+           "adiabatic_seed", "random_coeff_seed"]
 
 
 def linspace(a: float, b: float, n: int) -> np.ndarray:
@@ -21,6 +21,16 @@ def linspace(a: float, b: float, n: int) -> np.ndarray:
     while x <= b + 1e-7:
         out.append(x)
         x += step
+    return np.asarray(out, dtype=np.float64)
+
+
+def generate_range(a: float, b: float, c: float) -> np.ndarray:
+    """MATLAB-style a:b:c, accumulating `x += b` while x <= c + 1e-7."""
+    out = []
+    x = a
+    while x <= c + 1e-7:
+        out.append(x)
+        x += b
     return np.asarray(out, dtype=np.float64)
 
 

@@ -10,7 +10,17 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["op", "nn1_diag", "hop_two_site"]
+__all__ = ["local_dim", "op", "n_diag", "nn1_diag", "hop_two_site"]
+
+
+def local_dim(d: int) -> int:
+    """Local dimension for the Fock cutoff d (occupations 0..d)."""
+    return d + 1
+
+
+def n_diag(d: int) -> np.ndarray:
+    """Diagonal of the number operator: [0, 1, ..., d]."""
+    return np.arange(d + 1, dtype=np.float64)
 
 
 def nn1_diag(d: int) -> np.ndarray:

@@ -5,7 +5,8 @@ Counterpart of optimalcontrolmps_tpu/streaming.py, generic over the engine
 (states are whatever `step_fwd` / `step_bwd` take; the MPS engine's are
 (B, L, chi, p, chi) batches):
 
-* `rollout_measure`: one state in flight, measure(psi_i) at every time.
+* `rollout_measure`: one state in flight, measure(psi_i) at every time
+  (a tensor, or a tuple or dict of them).
 * `segmented_adjoint_gradient`: the analytic adjoint gradient with
   two-level checkpointing, N_t/K segment-start states plus the K states of
   one segment instead of the 2 N_t of the stacked gradient, for one more
@@ -28,12 +29,19 @@ __all__ = ["rollout_measure", "pick_segment", "segmented_adjoint_gradient",
 def rollout_measure(step_fwd, psi0, u, measure):
     """measure(psi_i) for every i in 0..N_t-1, stacked on a new leading
     time axis. step_fwd(psi, u_from, u_to) -> psi'; u carries time on its
-    last axis ((N_t,) or (B, N_t)); only one state is ever live."""
+    last axis ((N_t,) or (B, N_t)); only one state is ever live. measure
+    returns a tensor, a tuple of tensors or a dict of them; each field is
+    stacked on its own, and the result has the same structure."""
     psi = psi0
     out = [measure(psi)]
     for i in range(u.shape[-1] - 1):
         psi = step_fwd(psi, u[..., i], u[..., i + 1])
         out.append(measure(psi))
+    first = out[0]
+    if isinstance(first, dict):
+        return {k: torch.stack([m[k] for m in out]) for k in first}
+    if isinstance(first, tuple):
+        return tuple(torch.stack(f) for f in zip(*out))
     return torch.stack(out)
 
 

@@ -21,6 +21,7 @@ from optimalcontrolmps_torch import (dmrg, flagship, groundstate, mps, tebd,
                                      vidal)
 from optimalcontrolmps_torch.ops import bond_theta as bt
 from optimalcontrolmps_torch.ops import sector_chain as sc
+from optimalcontrolmps_torch.ops import trunc
 from optimalcontrolmps_torch.seeds import adiabatic_seed
 
 FWD_TOL = 2e-5   # tests/test_pallas_sector.py:51
@@ -207,6 +208,59 @@ def test_tebd_step_on_the_card_matches_the_cpu(dev):
     assert bt.bond_theta_launches == 10 * (L - 1)
     ov = mps.overlap(*out)
     assert abs(abs(complex(ov[0])) - 1.0) < 1e-12
+
+
+def test_gauge_moves_survive_zero_columns_on_the_card(dev):
+    """A batch of 13 sites (chi=36, p=6, complex64: test_runtimes' exact
+    Hessian rows) whose last element has 27 columns that are exactly zero
+    or rounding noise of 1e-17 entries (the kinds cuBLAS's batched geqrf
+    turned into NaN), or of 1e-20 or 1e-30 entries (their squares
+    underflow): both gauge moves stay finite and keep the two-site
+    product."""
+    rng = np.random.default_rng(9)
+
+    def mk(*s):
+        return rng.standard_normal(s) + 1j * rng.standard_normal(s)
+    A = mk(13, 216, 9) @ mk(9, 36)
+    Aj = torch.as_tensor(mk(13, 36, 6, 36), dtype=torch.complex64,
+                         device=dev)
+    for size in (0.0, 1e-17, 1e-20, 1e-30):
+        A[12, :, 9:] = size * mk(216, 27)
+        Ai = torch.as_tensor(A.reshape(13, 36, 6, 36),
+                             dtype=torch.complex64, device=dev)
+        two = torch.einsum('bapx,bxqc->bapqc', Ai, Aj)
+        scale = float(two.abs().max())
+        for move in (mps.move_right, mps.move_left):
+            Bi, Bj = move(Ai, Aj)
+            after = torch.einsum('bapx,bxqc->bapqc', Bi, Bj)
+            assert bool(torch.isfinite(Bi).all() and torch.isfinite(Bj).all())
+            assert float((after - two).abs().max()) < 1e-5 * scale
+        Bi, Bj = mps.move_left(Aj, Ai.conj().transpose(1, 3).resolve_conj()
+                               .contiguous())
+        assert bool(torch.isfinite(Bi).all() and torch.isfinite(Bj).all())
+
+
+@pytest.mark.parametrize("method", ["rsvd", "range"])
+def test_sketch_splits_survive_zero_thetas_on_the_card(dev, method):
+    """The rsvd and range splits take a thin QR of a sketch (cuBLAS's
+    batched geqrf at this batch and height): a batch of rank-12 thetas
+    (48 x 48, complex64) with one zero member and one of 1e-25 entries,
+    whose sketches' columns are zero or underflow, splits into finite
+    factors that reproduce every theta (to 1e-4 of the largest entry: the
+    complex64 range split reads 1e-5 on the CPU's LAPACK)."""
+    rng = np.random.default_rng(11)
+
+    def mk(*s):
+        return rng.standard_normal(s) + 1j * rng.standard_normal(s)
+    th = mk(8, 48, 12) @ mk(8, 12, 48)
+    th[3] = 0
+    th[5] *= 1e-25
+    theta = torch.as_tensor(th, dtype=torch.complex64, device=dev)
+    scale = float(theta.abs().max())
+    for keep_left in (True, False):
+        left, right = trunc.split_truncate(theta, 12, keep_left, method)
+        assert bool(torch.isfinite(left).all() and torch.isfinite(right).all())
+        assert float((left @ right - theta).abs().max()) < 1e-4 * scale
 
 
 # the Vidal stages' stacked inputs: the shipped L=5 problem's two even (and

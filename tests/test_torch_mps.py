@@ -112,6 +112,69 @@ def test_gauge_moves_keep_the_state(states, method):
            jnp.einsum('apb,bqc->apqc', ja, jb), tol)
 
 
+def test_zero_columns_are_filled_and_nothing_else():
+    """Before cuBLAS's batched QR (gauge moves, sketch splits) every column
+    at most eps of its matrix's longest (and at least 100 sqrt(tiny)) is
+    filled: that QR returned NaN for exactly-zero columns and for columns
+    far below eps of the longest. Exact zeros, columns of 1e-20 and 1e-200
+    of the rest and, in complex64, of 1e-10 (kept in complex128), and an
+    all-zero matrix are replaced by the cut times a fixed Gaussian, every
+    other column is kept bit for bit, and the QR of the filled batch is
+    finite and reproduces the input. Only a CUDA batch at least
+    max(2, n // 16) deep with n <= 256 takes that QR; a CPU tensor is not
+    filled."""
+    rng = np.random.default_rng(5)
+    m0 = torch.as_tensor(rng.standard_normal((4, 40, 12))
+                         + 1j * rng.standard_normal((4, 40, 12)))
+    m0[0, :, [1, 5, 11]] = 0
+    m0[2, :, 0] = 0
+    m0[2, 7, 2], m0[2, :, 2] = 0, 0
+    m0[2, 3, 2] = 1.0                # a unit column, as a Fock state has
+    m0[1, :, 3] *= 1e-20
+    m0[1, :, 8] *= 1e-200
+    m0[1, :, 6] *= 1e-10
+    m0[3] = 0
+    for dtype, tol in ((torch.complex128, 1e-14), (torch.complex64, 1e-5)):
+        m = m0.to(dtype)
+        short = torch.zeros((4, 12, 1), dtype=torch.bool)
+        short[0, [1, 5, 11]] = short[2, 0] = short[1, 3] = True
+        short[1, 8] = short[3] = True
+        short[1, 6] = dtype == torch.complex64
+        norms = torch.linalg.vector_norm(m, dim=-2)
+        cut = (torch.finfo(norms.dtype).eps * norms.amax(-1)).clamp(
+            min=trunc._qr_floor(dtype))
+        assert float(cut[3]) == trunc._qr_floor(dtype)
+        f = trunc._fill_short_columns(m)
+        ft, mt = f.transpose(-2, -1), m.transpose(-2, -1)
+        assert torch.equal(ft[~short[..., 0]], mt[~short[..., 0]])
+        g = trunc._fixed_gaussian(40, 12, dtype, m.device).T
+        want = (cut[:, None, None] * g).to(dtype)
+        assert torch.equal(ft[short[..., 0]], want.expand(4, 12, 40)[
+            short[..., 0]])
+        q, r = torch.linalg.qr(f, mode="reduced")
+        assert bool(torch.isfinite(q).all() and torch.isfinite(r).all())
+        _close(q @ r, m, tol)
+        _close(q.conj().transpose(-2, -1) @ q,
+               torch.eye(12, dtype=q.dtype).expand(4, 12, 12), tol)
+        q0, r0 = trunc.householder_qr(m)
+        qc, rc = torch.linalg.qr(m, mode="reduced")
+        assert torch.equal(q0, qc) and torch.equal(r0, rc)
+    assert 1e-152 < trunc._qr_floor(torch.complex128) < 2e-152
+    assert 1e-17 < trunc._qr_floor(torch.complex64) < 2e-17
+    # which shapes take the batched QR on the card (a stand-in with the
+    # CUDA flag), and that a CPU batch never does
+    cuda_like = type("CudaLike", (), {"is_cuda": True})
+    for shape, batched in (((13, 216, 36), True), ((12, 216, 36), False),
+                           ((2, 40, 12), True), ((1, 40, 12), False),
+                           ((40, 12), False), ((4, 2, 40, 12), True),
+                           ((300, 257, 36), False), ((6, 125, 25), False),
+                           ((7, 125, 25), True)):
+        t = cuda_like()
+        t.shape = shape
+        assert trunc._takes_batched_geqrf(t) == batched
+    assert not trunc._takes_batched_geqrf(m0)
+
+
 def test_apply_site_sum_diag(states):
     a, _ = states
     half = 0.5 * nn1_diag(P - 1)

@@ -57,16 +57,26 @@ def test_importing_every_module_loads_no_jax():
     "optimalcontrolmps_torch/drivers/amoeba_opt.py",
     "optimalcontrolmps_torch/vidal.py",
     "optimalcontrolmps_torch/dmrg.py",
+    "optimalcontrolmps_torch/observables.py",
+    "optimalcontrolmps_torch/profiling.py",
+    "optimalcontrolmps_torch/drivers/prep_states.py",
+    "optimalcontrolmps_torch/drivers/extend_time_evolution.py",
+    "optimalcontrolmps_torch/drivers/calculate_defects.py",
+    "optimalcontrolmps_torch/drivers/test_runtimes.py",
+    "optimalcontrolmps_torch/drivers/analyze_quench.py",
+    "optimalcontrolmps_torch/drivers/analyze_bond_dim.py",
 ])
 def test_the_slice_modules_are_checked(module):
     """The interior point, Nelder-Mead, the streaming Hessian, the AmoebaOpt
-    driver, the Vidal engine and DMRG are among the files checked above."""
+    driver, the Vidal engine, DMRG, the observables, profiling and the
+    analysis drivers are among the files checked above."""
     assert module in FILES
 
 
 @pytest.mark.parametrize("tool", [
     "tools/probe_mps_step.py", "tools/probe_ip_hessian.py",
-    "tools/compare_bond_theta.py", "tools/probe_vidal_dmrg.py"])
+    "tools/compare_bond_theta.py", "tools/probe_vidal_dmrg.py",
+    "tools/probe_analysis.py"])
 def test_the_port_tools_are_checked(tool):
     """The port's probes are found among the tools and checked above (the
     JAX package's own probes import JAX and are not the port's)."""
@@ -74,10 +84,14 @@ def test_the_port_tools_are_checked(tool):
 
 
 def test_entry_points_print_usage_without_arguments(capsys):
-    from optimalcontrolmps_torch.drivers import amoeba_opt, optimize_ramp
-    for mod in (optimize_ramp, amoeba_opt):
+    from optimalcontrolmps_torch.drivers import (amoeba_opt,
+                                                 extend_time_evolution,
+                                                 optimize_ramp, prep_states)
+    for mod in (optimize_ramp, amoeba_opt, extend_time_evolution):
         assert mod.main([]) == 0
         assert "Usage" in capsys.readouterr().out
+    assert prep_states.main([]) == 2
+    assert "prep_states" in capsys.readouterr().out
 
 
 def test_helpers_take_the_card_for_none(monkeypatch):
@@ -88,11 +102,20 @@ def test_helpers_take_the_card_for_none(monkeypatch):
     import torch
 
     from optimalcontrolmps_torch import control, flagship, sector
+    from optimalcontrolmps_torch.drivers import (analyze_bond_dim,
+                                                 analyze_quench,
+                                                 calculate_defects,
+                                                 prep_states, test_runtimes)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     z = np.zeros(3)
     for call in (lambda: control.basis_from_numpy(z, z, np.zeros((3, 2))),
                  lambda: sector.stepper_from_numpy({}),
                  lambda: flagship.make_problem(),
-                 lambda: flagship.solve_flagship(2)):
+                 lambda: flagship.solve_flagship(2),
+                 lambda: prep_states.compute(3, 2, 3, 1.0, 2.5, 50.0, 3),
+                 lambda: test_runtimes.run(),
+                 lambda: calculate_defects.run(),
+                 lambda: analyze_quench.run(),
+                 lambda: analyze_bond_dim.run()):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

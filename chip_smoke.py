@@ -54,7 +54,20 @@ Builds the hand-written Hopper kernels of optimalcontrolmps_torch from csrc/
    `analysis_shipped`: extend_time_evolution on ip_sector's converged
    ramp on the Vidal and the sector engine (equal to 1e-8), and
    test_runtimes with the Hessian; `analysis_card_vs_cpu`: three drivers
-   at the shipped widths on the card and on the CPU in complex128.
+   at the shipped widths on the card and on the CPU in complex128;
+12. the multi-device layer (`parallel/`): `parallel_1rank`, a world of one
+   NCCL rank on cuda:0, runs the sector multistart at the flagship's
+   widths (B = PAR_BATCH, exact gradient through the fused chain) sharded
+   against unsharded, the MPS train step with the row-sharded Hessian at
+   the shipped widths (T = PAR_TRAIN_T) against engine.hessian, the
+   tensor-parallel Vidal rollout at N=20, d=7, chi=128 from
+   analysis_chain's prep state against vidal.rollout_final, the bond theta
+   at TP_THETA_SHAPES, the dry run and scaling_bench; `parallel_2rank`,
+   two spawned gloo ranks both computing on cuda:0 (the only real
+   cross-rank sharding one card allows), runs the same against the
+   one-rank phase's references, plus a full PAR_SOLVE_ITERS solve; their
+   kernels are built here before the spawn, and each rank's launches are
+   added here; `native`: the host library (g++) against its Python twin.
 
 Each main path is driven with every launch counter set to 0 just before it
 and read just after; the `kernels` line sums each kernel's launches over
@@ -179,6 +192,41 @@ EXTEND_VIDAL_SECTOR_TOL = 1e-8
 # test_runtimes at T = RUNTIMES_T: the same cost at every batch size
 # (complex64 on the card)
 RUNTIMES_T, RUNTIMES_COST_REL_TOL = 0.2, 1e-5
+# the multi-device phases. The sector multistart at the flagship's widths
+# and seeds (B = PAR_BATCH, bench.py:205-207), exact gradient through the
+# fused chain: lane by lane against the unsharded call after
+# PAR_CHECK_ITERS iterations (one rank: bitwise; two ranks: float32 lanes in
+# another batch, ROADMAP "Float32 lockstep L-BFGS"), then a full solve of
+# PAR_SOLVE_ITERS on two ranks. The MPS train step at the shipped widths
+# (chi = 25, complex128), T cut to PAR_TRAIN_T (the dense Hessian's cost),
+# PAR_TRAIN_B lanes: its Hessian diagonal against engine.hessian to 1e-8
+# relative (a row stepped in another batch moves an entry ~1e-9 relative on
+# the card, tools/probe_ip_hessian.py). The tensor-parallel Vidal rollout
+# at the reference scale (analysis_chain's prep state padded to chi 128,
+# complex64, TP_STEPS steps of ANALYSIS_TSTEP) against vidal.rollout_final:
+# |<tp|ref>| / (|tp| |ref|) within TP_OV_TOL of 1 (an MPS contraction; no
+# state vector at N = 20) and Schmidt values to TP_SCHMIDT_TOL on one rank
+# (TP_SCHMIDT_TOL_SPLIT on two, below).
+PAR_BATCH, PAR_CHECK_ITERS, PAR_SOLVE_ITERS, PAR_TOL = 4096, 6, 150, 1e-5
+PAR_LANE_REL_TOL = 1e-6
+PAR_TRAIN_T, PAR_TRAIN_B, PAR_HESS_REL_TOL = 0.5, 8, 1e-8
+TP_STEPS, TP_OV_TOL, TP_SCHMIDT_TOL = 20, 1e-6, 1e-5
+# two ranks step each stage's bonds in other batches (5 / 5 and 5 / 4
+# instead of 10 / 9), and on the card a complex64 bond update in another
+# batch rounds differently: the Schmidt values then move by up to 3.3e-5
+# after 20 steps (my chip run 2), the density matrices' eigenvalues being
+# resolved only to ~eps32 of the largest (lam = sqrt(w): ~3.5e-4 at the
+# tail). So two ranks are held to TP_SCHMIDT_TOL_SPLIT, one rank (the same
+# batches) to TP_SCHMIDT_TOL; `parallel_1rank` reads the unsharded rollout
+# at twice the batch against itself as the witness of that floor.
+TP_SCHMIDT_TOL_SPLIT = 1e-4
+# the bond theta's shares of a tensor-parallel stage at N = 20 on two
+# ranks: 10 even bonds 5 / 5, 9 odd bonds 5 / 4 (chi 128, p = 8)
+TP_THETA_SHAPES = ((5, 128, 8), (4, 128, 8))
+# the host library: both sectors enumerated by both routes; the COO of the
+# first against the Python twin (indices exact, values to 1e-12)
+NATIVE_CASES = ((10, 4, 10), (12, 5, 12))
+NATIVE_COO_TOL = 1e-12
 
 # published H100 SXM peaks (NVIDIA data sheet): memory; fp32 outside the
 # tensor cores; fp64 through the tensor cores (DMMA), the card's peak for the
@@ -1331,6 +1379,7 @@ def drive_analysis_chain() -> dict:
     if not all(r == n_t for r in files.values()):
         fail(f"analysis: files without {n_t} rows: {files}")
     res["launches"] = launches
+    res["prep_state"] = psi_i_h     # handed to the tensor-parallel phases
     return res
 
 
@@ -1459,6 +1508,370 @@ def drive_analysis_card_vs_cpu() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# the multi-device phases and the host library
+# ---------------------------------------------------------------------------
+
+def counted_part(record: dict, name: str, fn):
+    """fn() with every launch counter set to 0 just before and read just
+    after; its launches and wall time go into record[name]."""
+    reset_all_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    record[name] = {"launches": launch_counts(),
+                    "wall_s": time.perf_counter() - t0}
+    return out
+
+
+def par_sector(dev):
+    """The flagship problem (complex64) and its PAR_BATCH seeds."""
+    from optimalcontrolmps_torch import flagship
+    prob = flagship.make_problem(dev)
+    return prob, flagship.multistart_coeffs(PAR_BATCH, prob.basis.M)
+
+
+def par_multistart(prob, cs, mesh, max_iter: int):
+    from optimalcontrolmps_torch.parallel.multistart import multistart_lbfgs
+    return multistart_lbfgs(prob.st, prob.psi_i, prob.psi_f, prob.basis, cs,
+                            gamma=prob.gamma, max_iter=max_iter, tol=PAR_TOL,
+                            mesh=mesh, exact=True)
+
+
+def par_train_problem():
+    """The shipped file's MPS problem at T = PAR_TRAIN_T, and its
+    PAR_TRAIN_B starts (lane 0 zero, numpy seed 7)."""
+    from optimalcontrolmps_torch import flagship
+    from optimalcontrolmps_torch.drivers import common
+    p = common.build_problem(example_config(engine="mps", T=PAR_TRAIN_T),
+                             engine="mps")
+    return p, flagship.multistart_coeffs(PAR_TRAIN_B, p.M).astype(np.float64)
+
+
+def par_train(p, cs, mesh):
+    """(costs (B,), best lane, Hessian diagonal) of one train step."""
+    from optimalcontrolmps_torch.parallel.comm import argmin
+    from optimalcontrolmps_torch.parallel.multistart import make_train_step
+    step, shard = make_train_step(p.stepper, p.psi_i, p.psi_f, p.basis,
+                                  gamma=p.gamma, lr=10.0, mesh=mesh,
+                                  with_hessian=True)
+    C = shard(cs) if mesh is not None else torch.as_tensor(
+        cs, device=p.basis.f.device)
+    _, costs, _, hdiag = step(C)
+    return costs, argmin(costs), hdiag
+
+
+def tp_problem(B_h, lam_h, dev):
+    """The N = 20, d = 7, chi = 128 complex64 Vidal stepper, the prep
+    state (host arrays) on `dev` and TP_STEPS + 1 controls."""
+    from optimalcontrolmps_torch import seeds, tebd, vidal
+    st = tebd.make_stepper(ANALYSIS_N, ANALYSIS_D, 1.0, ANALYSIS_TSTEP,
+                           ANALYSIS_MAXM, dtype=torch.complex64,
+                           sweep="vidal", device=dev)
+    state = vidal.VidalState(torch.as_tensor(B_h, device=dev),
+                             torch.as_tensor(lam_h, device=dev))
+    u = torch.as_tensor(seeds.linspace(2.5, 50.0, TP_STEPS + 1),
+                        dtype=torch.float32, device=dev)
+    return st, state, u
+
+
+def tp_agreement(B_tp, lam_tp, ref) -> dict:
+    """|<tp|ref>| / (|tp| |ref|) - 1 by an MPS contraction, and the
+    largest Schmidt-value difference, where it sits and how many values
+    are more than TP_SCHMIDT_TOL apart, of a psi(T) against ref."""
+    from optimalcontrolmps_torch import mps, vidal
+    A = torch.as_tensor(B_tp, device=ref.B.device)[None]
+    R = ref.B[None]
+    ov = float(torch.abs(mps.overlap(R, A))[0]
+               / (mps.norm(A)[0] * mps.norm(R)[0]))
+    lam_ref = vidal.schmidt_values(ref)
+    d = np.abs(np.sort(np.asarray(lam_tp), axis=-1)[..., ::-1] - lam_ref)
+    worst = np.unravel_index(int(np.argmax(d)), d.shape)
+    return {"overlap_minus_1": ov - 1.0, "schmidt_max_diff": float(d.max()),
+            "worst_bond_index": [int(i) for i in worst],
+            "worst_ref_value": float(lam_ref[worst]),
+            "values_off_by_1e-5": int((d > TP_SCHMIDT_TOL).sum()),
+            "values": int(d.size)}
+
+
+def two_rank_work(rank, world, B_h, lam_h):
+    """A rank of the 2-rank gloo world, both ranks computing on cuda:0:
+    the sector multistart (check and full solve), the train step on a
+    (1, 2) mesh, the tensor-parallel rollout and the dry run; host results
+    and launches."""
+    from optimalcontrolmps_torch import vidal
+    from optimalcontrolmps_torch.parallel.dryrun import dryrun_multidevice
+    from optimalcontrolmps_torch.parallel.mesh import make_mesh
+    from optimalcontrolmps_torch.precision import enforce_matmul_precision
+
+    enforce_matmul_precision()
+    m_batch = make_mesh(world)
+    m_rows = make_mesh(world, rows=world)
+    parts = {}
+    out = {"rank": rank, "device": str(m_batch.device), "parts": parts}
+    prob, cs = par_sector(m_batch.device)
+    r = counted_part(parts, "sector_check", lambda: par_multistart(
+        prob, cs, m_batch, PAR_CHECK_ITERS))
+    out["sector_check"] = r.all_costs.cpu().numpy()
+    r = counted_part(parts, "sector_solve", lambda: par_multistart(
+        prob, cs, m_batch, PAR_SOLVE_ITERS))
+    out["sector_solve"] = {"best": float(r.best_cost),
+                           "all_costs": r.all_costs.cpu().numpy(),
+                           "converged": int(r.converged.sum())}
+    p, cs_t = par_train_problem()
+    costs, k, hdiag = counted_part(parts, "train_step",
+                                   lambda: par_train(p, cs_t, m_rows))
+    out["train_step"] = {"costs": costs.cpu().numpy(), "best_lane": k,
+                         "hdiag": hdiag.cpu().numpy()}
+    st, state, u = tp_problem(B_h, lam_h, m_rows.device)
+    psiT = counted_part(parts, "tp_rollout", lambda: vidal.rollout_final_tp(
+        st, state, u, m_rows))
+    out["tp_rollout"] = {"B": psiT.B.cpu().numpy(),
+                         "lam": psiT.lam.cpu().numpy()}
+    out["dryrun"] = counted_part(parts, "dryrun",
+                                 lambda: dryrun_multidevice(m_batch))
+    return out
+
+
+def sum_launches(parts: dict) -> dict:
+    total = {k: 0 for k in ("sector_chain_fwd", "sector_chain_bwd",
+                            "bond_theta")}
+    for part in parts.values():
+        for k, v in part["launches"].items():
+            total[k] += v
+    return total
+
+
+def check_dryrun(d: dict, label: str) -> None:
+    ok = all(d[k]["finite"] for k in ("train_step", "sector_lbfgs",
+                                      "interior_point", "tp_rollout"))
+    if not (ok and d["train_step"]["hdiag"] == [9]
+            and d["sector_lbfgs"]["best_cost"]
+            == min(d["sector_lbfgs"]["all_costs"])):
+        fail(f"{label}: dryrun_multidevice: {d}")
+
+
+def drive_parallel_1rank(prep_state) -> dict:
+    """A world of one NCCL rank on cuda:0 (init_distributed, the card's
+    default) through every sharded entry: the sector multistart (sharded =
+    unsharded, bitwise), the train step (Hessian diagonal = engine.hessian
+    to PAR_HESS_REL_TOL), the tensor-parallel rollout (= vidal.rollout_final,
+    TP_OV_TOL / TP_SCHMIDT_TOL), the bond theta at TP_THETA_SHAPES, the dry
+    run and scaling_bench. Returns the references the 2-rank phase is held
+    against, the launches and the readings."""
+    import torch.distributed as dist
+
+    from optimalcontrolmps_torch import engine, mps, vidal
+    from optimalcontrolmps_torch.drivers import scaling_bench
+    from optimalcontrolmps_torch.parallel.dryrun import dryrun_multidevice
+    from optimalcontrolmps_torch.parallel.mesh import (init_distributed,
+                                                       make_mesh)
+    from optimalcontrolmps_torch.parallel.multistart import (
+        _group_cost_and_grad)
+
+    world, _ = init_distributed()
+    if not (world == 1 and dist.get_backend() == "nccl"):
+        fail(f"parallel_1rank: world {world}, {dist.get_backend()}")
+    m = make_mesh()
+    dev = m.device
+    parts, res = {}, {"backend": dist.get_backend(), "device": str(dev),
+                      "mesh": list(m.shape)}
+
+    prob, cs = par_sector(dev)
+    t0 = time.perf_counter()
+    ref = par_multistart(prob, cs, None, PAR_CHECK_ITERS)
+    res["sector_unsharded_s"] = time.perf_counter() - t0
+    r = counted_part(parts, "sector_check", lambda: par_multistart(
+        prob, cs, m, PAR_CHECK_ITERS))
+    lane_diff = float(torch.max(torch.abs(r.all_costs - ref.all_costs)))
+    J0 = float(_group_cost_and_grad(
+        prob.st, prob.psi_i, prob.psi_f, prob.basis, prob.gamma,
+        torch.zeros((1, prob.basis.M), device=dev), exact=True)[0][0])
+    res["sector"] = {"batch": PAR_BATCH, "iters": PAR_CHECK_ITERS,
+                     "lane_max_abs_diff": lane_diff,
+                     "best": float(r.best_cost), "J_c0": J0}
+
+    p, cs_t = par_train_problem()
+    costs, k, hdiag = counted_part(parts, "train_step",
+                                   lambda: par_train(p, cs_t, m))
+    t0 = time.perf_counter()
+    u_best = p.basis.convert_control(torch.as_tensor(cs_t[k], device=dev))
+    H = engine.hessian(p.stepper, p.psi_i, p.psi_f, u_best, p.gamma)
+    hd_ref = torch.diagonal(H)
+    res["hessian_ref_s"] = time.perf_counter() - t0
+    hd_rel = float(torch.max(torch.abs(hdiag - hd_ref))
+                   / torch.max(torch.abs(hd_ref)))
+    res["train_step"] = {"B": PAR_TRAIN_B, "n_t": int(hdiag.shape[0]),
+                         "best_lane": k, "best": float(costs[k]),
+                         "hdiag_rel_diff": hd_rel}
+
+    A = mps.pad_chi(prep_state, ANALYSIS_MAXM).astype(np.complex64)
+    t0 = time.perf_counter()
+    state_h = vidal.from_mps(A, device=dev)
+    B_h, lam_h = state_h.B.cpu().numpy(), state_h.lam.cpu().numpy()
+    res["from_mps_s"] = time.perf_counter() - t0
+    st, state, u = tp_problem(B_h, lam_h, dev)
+    t0 = time.perf_counter()
+    tp_ref = vidal.rollout_final(st, state, u)
+    torch.cuda.synchronize(dev)
+    res["tp_ref_s"] = time.perf_counter() - t0
+    psiT = counted_part(parts, "tp_rollout", lambda: vidal.rollout_final_tp(
+        st, state, u, m))
+    res["tp_rollout"] = tp_agreement(psiT.B, psiT.lam.cpu().numpy(), tp_ref)
+    # the witness: the unsharded rollout with its stage batches doubled
+    # (two identical lanes) against itself
+    two = vidal.rollout_final(st, state, torch.stack([u, u]))
+    res["tp_batch_witness"] = tp_agreement(two.B[1], two.lam[1].cpu().numpy(),
+                                           tp_ref)
+
+    thetas = [theta_reading(*theta_inputs(b, chi, pp, torch.complex64),
+                            "TP share ")
+              for b, chi, pp in TP_THETA_SHAPES]
+    res["dryrun"] = counted_part(parts, "dryrun",
+                                 lambda: dryrun_multidevice(m))
+    res["scaling_bench"] = counted_part(parts, "scaling_bench",
+                                        lambda: scaling_bench.run())
+    dist.destroy_process_group()
+    res["parts"] = parts
+    res["launches"] = sum_launches(parts)
+    print(json.dumps({"parallel_1rank": res}))
+
+    if not lane_diff == 0.0:
+        fail(f"parallel_1rank: sharded multistart differs from unsharded "
+             f"by {lane_diff}")
+    if not float(r.best_cost) == float(r.all_costs.min()):
+        fail("parallel_1rank: best_cost is not min(all_costs)")
+    if not hd_rel <= PAR_HESS_REL_TOL:
+        fail(f"parallel_1rank: Hessian diagonal off by {hd_rel} relative")
+    tp = res["tp_rollout"]
+    if not (abs(tp["overlap_minus_1"]) <= TP_OV_TOL
+            and tp["schmidt_max_diff"] <= TP_SCHMIDT_TOL):
+        fail(f"parallel_1rank: tensor-parallel rollout: {tp}")
+    check_dryrun(res["dryrun"], "parallel_1rank")
+    rows = res["scaling_bench"]["rows"]
+    if not (len(rows) == 1 and rows[0]["ramps_per_s"] > 0):
+        fail(f"parallel_1rank: scaling_bench rows {rows}")
+    for name in ("sector_check", "train_step", "tp_rollout"):
+        if not sum(parts[name]["launches"].values()) > 0:
+            fail(f"parallel_1rank: {name} launched no kernel")
+    return {"res": res, "thetas": thetas, "sector_ref": ref.all_costs,
+            "J0": J0, "hd_ref": hd_ref, "tp_ref": tp_ref, "B_h": B_h,
+            "lam_h": lam_h}
+
+
+def drive_parallel_2rank(one: dict) -> dict:
+    """Two spawned gloo ranks, both computing on cuda:0 (two_rank_work),
+    held against the one-rank phase's unsharded references."""
+    from optimalcontrolmps_torch.parallel.spawn import run_world
+
+    t0 = time.perf_counter()
+    # half the host's cores each: two ranks with a full OpenMP pool each
+    # spin against one another on the host's side of the work
+    threads = max(1, (os.cpu_count() or 2) // 2)
+    outs = run_world(two_rank_work, 2, backend="gloo", device="cuda:0",
+                     args=(one["B_h"], one["lam_h"]), threads=threads,
+                     timeout=600)
+    wall = time.perf_counter() - t0
+    ref = one["sector_ref"].cpu().numpy()
+    hd_ref = one["hd_ref"]
+    res = {"world": 2, "backend": "gloo", "wall_s": wall, "ranks": []}
+    for o in outs:
+        lane = float(np.max(np.abs(o["sector_check"] - ref)
+                            / np.maximum(np.abs(ref), 1e-30)))
+        solve = o["sector_solve"]
+        hd = torch.as_tensor(o["train_step"]["hdiag"], device=hd_ref.device)
+        hd_rel = float(torch.max(torch.abs(hd - hd_ref))
+                       / torch.max(torch.abs(hd_ref)))
+        tp = tp_agreement(o["tp_rollout"]["B"], o["tp_rollout"]["lam"],
+                          one["tp_ref"])
+        res["ranks"].append({
+            "rank": o["rank"], "device": o["device"],
+            "sector_check_lane_rel_diff": lane,
+            "sector_solve": {"best": solve["best"],
+                             "min_all": float(solve["all_costs"].min()),
+                             "converged": solve["converged"],
+                             "J_c0": one["J0"]},
+            "train_step_hdiag_rel_diff": hd_rel, "tp_rollout": tp,
+            "parts": o["parts"]})
+        check_dryrun(o["dryrun"], f"parallel_2rank rank {o['rank']}")
+    res["launches"] = sum_launches({f"{i}_{k}": v for i, o in enumerate(outs)
+                                    for k, v in o["parts"].items()})
+    print(json.dumps({"parallel_2rank": res}))
+    for r in res["ranks"]:
+        if not r["sector_check_lane_rel_diff"] <= PAR_LANE_REL_TOL:
+            fail(f"parallel_2rank: lanes differ from the unsharded call: "
+                 f"{r['sector_check_lane_rel_diff']}")
+        sv = r["sector_solve"]
+        if not (sv["best"] == sv["min_all"] and sv["best"] < sv["J_c0"]):
+            fail(f"parallel_2rank: full solve {sv}")
+        if not r["train_step_hdiag_rel_diff"] <= PAR_HESS_REL_TOL:
+            fail(f"parallel_2rank: Hessian diagonal off by "
+                 f"{r['train_step_hdiag_rel_diff']} relative")
+        tp = r["tp_rollout"]
+        if not (abs(tp["overlap_minus_1"]) <= TP_OV_TOL
+                and tp["schmidt_max_diff"] <= TP_SCHMIDT_TOL_SPLIT):
+            fail(f"parallel_2rank: tensor-parallel rollout: {tp}")
+        for name in ("sector_check", "sector_solve", "train_step",
+                     "tp_rollout"):
+            if not sum(r["parts"][name]["launches"].values()) > 0:
+                fail(f"parallel_2rank: {name} launched no kernel")
+    if not (outs[0]["sector_solve"]["best"]
+            == outs[1]["sector_solve"]["best"]):
+        fail("parallel_2rank: the ranks disagree on the best cost")
+    return res
+
+
+def drive_native() -> dict:
+    """The host library: built with g++, then NATIVE_CASES enumerated by it
+    and by the Python twin (exact), the first case's COO Hamiltonian
+    against the twin's (indices exact, values to NATIVE_COO_TOL), with the
+    wall time of both routes."""
+    from optimalcontrolmps_torch import groundstate, native
+    from optimalcontrolmps_torch.ops import _build
+
+    _build.load_native()    # built at first use, by the phases before
+    log = _build.build_log.get("ocmps_native", {})
+    res = {"build_s": log.get("seconds"), "build_cmd": log.get("cmd"),
+           "cases": []}
+    for case in NATIVE_CASES:
+        t0 = time.perf_counter()
+        st_n, fl_n = native.sector_basis(*case)
+        t_nat = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        st_p, fl_p = groundstate.sector_basis_python(*case)
+        t_py = time.perf_counter() - t0
+        row = {"L_d_npart": list(case), "states": int(st_n.shape[0]),
+               "enumerate_native_s": t_nat, "enumerate_python_s": t_py,
+               "enumeration_equal": bool(np.array_equal(st_n, st_p)
+                                         and np.array_equal(fl_n, fl_p))}
+        if case == NATIVE_CASES[0]:
+            t0 = time.perf_counter()
+            r, c, v, n = native.sector_hamiltonian_coo(*case, 1.0, 2.5)
+            row["coo_native_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            pr, pc, pv, pn = groundstate.sector_hamiltonian_coo_python(
+                *case, 1.0, 2.5)
+            row["coo_python_s"] = time.perf_counter() - t0
+            row["nnz"] = int(r.size)
+            row["coo_index_equal"] = bool(n == pn and np.array_equal(r, pr)
+                                          and np.array_equal(c, pc))
+            row["coo_max_abs_diff"] = float(np.abs(v - pv).max()) \
+                if v.shape == pv.shape else float("inf")
+        res["cases"].append(row)
+    print(json.dumps({"native": res}))
+    counts = {(10, 4, 10): 72403, (12, 5, 12): 1203632}
+    for row in res["cases"]:
+        if not (row["enumeration_equal"]
+                and row["states"] == counts[tuple(row["L_d_npart"])]):
+            fail(f"native: enumeration {row}")
+    first = res["cases"][0]
+    if not (first["coo_index_equal"]
+            and first["coo_max_abs_diff"] <= NATIVE_COO_TOL):
+        fail(f"native: COO Hamiltonian {first}")
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False; this script needs a GPU")
@@ -1528,10 +1941,21 @@ def main() -> None:
                 "test_runtimes)")
     acc = drive_analysis_card_vs_cpu()
     phases.done("analysis_card_vs_cpu (three drivers at L=5, complex128)")
+    one = drive_parallel_1rank(an["prep_state"])
+    phases.done("parallel_1rank (a one-rank NCCL world: multistart, train "
+                "step, TP rollout, dry run, scaling_bench)")
+    two = drive_parallel_2rank(one)
+    phases.done("parallel_2rank (two gloo ranks on cuda:0)")
+    drive_native()
+    phases.done("native (the host library against its Python twin)")
     for r in (vx, vs, an, ash, acc):
         bt["launches"] += r["launches"]
+    for r in (one["res"], two):
+        for k, v in r["launches"].items():
+            kernels[k]["launches"] += v
     for r in (vx, vs, an):
         bt["checks"] += r["thetas"]
+    bt["checks"] += one["thetas"]
     bt["max_abs_err"] = max(c["max_abs_err"] for c in bt["checks"])
 
     print(json.dumps({"kernels": [kernels[k] for k in (

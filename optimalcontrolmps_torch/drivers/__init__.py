@@ -8,6 +8,7 @@
   calculate_defects      <- main/CalculateDefects.cpp
   extend_time_evolution  <- main/ExtendTimeEvolution.cpp
   prep_states            boundary ground states, cached in an npz
+  scaling_bench          weak scaling over 1/2/4/8 ranks (torchrun)
 
 Each runs as `python -m optimalcontrolmps_torch.drivers.<name> ...` with
 the reference's positional arguments (InputFile, optional seed or ramp

@@ -16,7 +16,8 @@ together, one bond update per bond for the whole batch.
 
 `gradient_segmented` and `hessian_streaming` give the same gradient and
 Hessian with few states in flight (streaming.py), for the host-mode
-interior point.
+interior point. `hessian(row_shard=mesh)` splits the row loop over the
+ranks of a mesh's "rows" axis (the JAX package's row_sharding).
 
 The regularization helpers act on the last axis, so they serve a (B, N)
 batch as well as one (N,) control.
@@ -24,10 +25,14 @@ batch as well as one (N,) control.
 
 from __future__ import annotations
 
+import bisect
+
 import torch
 
 from . import mps as mpslib
 from .device import resolve_device
+from .parallel.comm import all_reduce_sum
+from .parallel.mesh import row_shard as _row_slice
 from .streaming import (BlockHessian, assemble_hessian, pick_row_block,
                         rollout_measure, segmented_adjoint_gradient)
 from .tebd import TEBDStepper, tebd_step
@@ -242,7 +247,8 @@ def cost_and_gradient(st: TEBDStepper, psi0, psi_target, u, gamma):
 # Hessian: batched row propagation
 # ---------------------------------------------------------------------------
 
-def hessian(st: TEBDStepper, psi0, psi_target, u, gamma, aux=None):
+def hessian(st: TEBDStepper, psi0, psi_target, u, gamma, aux=None,
+            row_shard=None):
     """Exact dense Hessian of J for one control u (N_t,) (calcHessian_*).
 
     Row i needs psiH_i(t_j) = U(t_j <- t_i) dH psi_i for j > i. All row
@@ -250,6 +256,12 @@ def hessian(st: TEBDStepper, psi0, psi_target, u, gamma, aux=None):
     together (rows i >= j are frozen, and row 0 and rows past N_t-2 are
     masked out of H, as in the JAX package), then every active row is
     overlapped with xiH_j. aux: (psi_t, xi_t, divT, ov) from `gradient`.
+
+    row_shard: a `parallel.mesh.Mesh`; this rank then steps only its rows
+    along the mesh's "rows" axis (row i on row rank i mod n_rows,
+    `parallel.mesh.row_shard`), and the overlap matrix, zero where another
+    rank's rows are, is summed over the rows group: every entry has one
+    writer, so every rank returns the whole Hessian.
     """
     n = u.shape[0]
     dt = st.dt
@@ -265,12 +277,23 @@ def hessian(st: TEBDStepper, psi0, psi_target, u, gamma, aux=None):
     rows, row_norm = mpslib.apply_site_sum_diag(psi_t, half,
                                                 method=st.trunc_method)
 
+    # the rows that are ever stepped (1 <= i < j <= N_t - 2), this rank's
+    mine = torch.arange(n, device=rows.device)
+    if row_shard is not None:
+        mine = mine[_row_slice(row_shard, n)]
+    mine = mine[(mine >= 1) & (mine <= n - 3)]
     ovm = torch.zeros((n, n), dtype=rows.dtype, device=rows.device)
-    states = rows.clone()
+    states = rows[mine]
+    rows_h = mine.tolist()
     for j in range(2, n - 1):      # j = 1 has no active row i >= 1
-        act = tebd_step(st, states[1:j], u[j - 1], u[j], forward=True)
-        states[1:j] = act
-        ovm[j, 1:j] = _overlap_with(xiH[j], act)  # <xiH_j|psiH_i(t_j)>
+        a = bisect.bisect_left(rows_h, j)   # this rank's rows i < j
+        if a == 0:
+            continue
+        act = tebd_step(st, states[:a], u[j - 1], u[j], forward=True)
+        states[:a] = act
+        ovm[j, mine[:a]] = _overlap_with(xiH[j], act)  # <xiH_j|psiH_i(t_j)>
+    if row_shard is not None:
+        ovm = all_reduce_sum(ovm, row_shard.rows_group)
 
     diag_ov = mpslib.overlap(xiH, rows)
     return assemble_hessian(ovm, row_norm, xiH_norm, diag_ov, divT, ov, dt,

@@ -1,7 +1,8 @@
 """Fixed particle-number sector of the Bose-Hubbard chain, ground states.
 
 Counterpart of optimalcontrolmps_tpu/groundstate.py: the sector basis and
-Hamiltonian in numpy, and `initialize_state` (an MPS on a torch device), by
+Hamiltonian from the host library (`native.py`, with plain-Python twins),
+and `initialize_state` (an MPS on a torch device), by
 exact diagonalization of the sector or, above EXACT_DIAG_MAX_DIM states,
 by DMRG (`dmrg.py`). Hamiltonian:
     H = -J sum_i (a_i adag_{i+1} + adag_i a_{i+1}) + U/2 sum_i n_i(n_i-1)
@@ -15,10 +16,12 @@ import numpy as np
 import torch
 
 from . import mps as mpslib
+from . import native
 from .device import resolve_device
 from .dmrg import dmrg_ground_state
 
-__all__ = ["sector_basis", "sector_hamiltonian", "sector_dim",
+__all__ = ["sector_basis", "sector_basis_python", "sector_hamiltonian",
+           "sector_hamiltonian_coo_python", "sector_dim",
            "sector_ground_vector", "ground_statevector", "initialize_state",
            "EXACT_DIAG_MAX_DIM"]
 
@@ -29,10 +32,16 @@ EXACT_DIAG_MAX_DIM = 20_000
 @lru_cache(maxsize=64)
 def sector_basis(L: int, d: int, npart: int) -> tuple:
     """All occupation tuples with sum = npart, each n_i <= d, in
-    lexicographic order (site 0 most significant).
+    lexicographic order (site 0 most significant), enumerated by the host
+    library (`native.py`).
 
-    Returns (states, flat): states is an int array (nstates, L), flat holds
-    each state's full-space basis index (row-major, site 0 slowest)."""
+    Returns (states, flat): states is an int64 array (nstates, L), flat
+    holds each state's full-space basis index (row-major, site 0 slowest)."""
+    return native.sector_basis(L, d, npart)
+
+
+def sector_basis_python(L: int, d: int, npart: int) -> tuple:
+    """`sector_basis` in plain Python: the host library's twin."""
     states = []
 
     def rec(prefix, remaining, sites_left):
@@ -46,34 +55,54 @@ def sector_basis(L: int, d: int, npart: int) -> tuple:
             rec(prefix + [n], remaining - n, sites_left - 1)
 
     rec([], npart, L)
-    arr = np.array(states, dtype=np.int64)
+    arr = np.array(states, dtype=np.int64).reshape(-1, L)
     weights = (d + 1) ** np.arange(L - 1, -1, -1)
     return arr, arr @ weights
 
 
-def sector_hamiltonian(L: int, d: int, npart: int, J: float,
-                       U: float) -> np.ndarray:
-    """Dense Hamiltonian restricted to the fixed-N sector."""
-    states, _ = sector_basis(L, d, npart)
-    ns = len(states)
-    lookup = {tuple(s): k for k, s in enumerate(states)}
-    H = np.zeros((ns, ns), dtype=np.float64)
-    for k, s in enumerate(states):
-        H[k, k] += 0.5 * U * float(np.sum(s * (s - 1.0)))
+def sector_hamiltonian_coo_python(L: int, d: int, npart: int, J: float,
+                                  U: float) -> tuple:
+    """(rows, cols, vals, n) of the sector Hamiltonian in plain Python, the
+    host library's twin entry for entry: per state k its diagonal, then
+    for each bond i the hops a_i adag_{i+1} and adag_i a_{i+1} that exist
+    (row = the state reached, col = k)."""
+    states, _ = sector_basis_python(L, d, npart)
+    lookup = {tuple(s): k for k, s in enumerate(states.tolist())}
+    rows, cols, vals = [], [], []
+    for k, s in enumerate(states.tolist()):
+        diag = 0.0
+        for n in s:
+            diag += 0.5 * U * n * (n - 1.0)
+        rows.append(k)
+        cols.append(k)
+        vals.append(diag)
         for i in range(L - 1):
             ni, nj = s[i], s[i + 1]
-            # a_i adag_{i+1}: |ni-1, nj+1>
             if ni >= 1 and nj + 1 <= d:
                 t = list(s)
                 t[i] -= 1
                 t[i + 1] += 1
-                H[lookup[tuple(t)], k] += -J * np.sqrt(ni) * np.sqrt(nj + 1)
-            # adag_i a_{i+1}: |ni+1, nj-1>
+                rows.append(lookup[tuple(t)])
+                cols.append(k)
+                vals.append(-J * np.sqrt(float(ni)) * np.sqrt(float(nj + 1)))
             if nj >= 1 and ni + 1 <= d:
                 t = list(s)
                 t[i] += 1
                 t[i + 1] -= 1
-                H[lookup[tuple(t)], k] += -J * np.sqrt(nj) * np.sqrt(ni + 1)
+                rows.append(lookup[tuple(t)])
+                cols.append(k)
+                vals.append(-J * np.sqrt(float(nj)) * np.sqrt(float(ni + 1)))
+    return (np.array(rows, dtype=np.int64), np.array(cols, dtype=np.int64),
+            np.array(vals, dtype=np.float64), len(states))
+
+
+def sector_hamiltonian(L: int, d: int, npart: int, J: float,
+                       U: float) -> np.ndarray:
+    """Dense Hamiltonian restricted to the fixed-N sector, summed from the
+    host library's COO."""
+    r, c, v, n = native.sector_hamiltonian_coo(L, d, npart, J, U)
+    H = np.zeros((n, n), dtype=np.float64)
+    np.add.at(H, (r, c), v)
     return H
 
 

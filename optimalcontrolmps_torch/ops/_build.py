@@ -1,11 +1,13 @@
-"""Build and load the hand-written CUDA kernels of the port.
+"""Build and load the hand-written CUDA kernels and the host library.
 
-Each source under `optimalcontrolmps_torch/csrc/` is compiled with nvcc for
-Hopper (`sm_90a`) into a shared library with a plain C interface under
-`optimalcontrolmps_torch/build/`, named after the hash of the source, and
-loaded with ctypes. The first call builds; a changed source builds anew.
-`build_all` starts one nvcc per source at once and waits for all of them.
-Nothing is built or imported when this module is imported.
+Each `.cu` source under `optimalcontrolmps_torch/csrc/` is compiled with
+nvcc for Hopper (`sm_90a`) into a shared library with a plain C interface
+under `optimalcontrolmps_torch/build/`, named after the hash of the source,
+and loaded with ctypes. The host library `csrc/ocmps_native.cpp` (sector
+enumeration, the sector Hamiltonian's COO, seed ramps) is built the same way
+with g++. The first call builds; a changed source builds anew; a failed
+build raises. `build_all` starts one nvcc per CUDA source at once and waits
+for all of them. Nothing is built or imported when this module is imported.
 """
 
 from __future__ import annotations
@@ -17,8 +19,8 @@ import shutil
 import subprocess
 import time
 
-__all__ = ["load_sector_chain", "load_bond_theta", "build_all", "build_log",
-           "SOURCES"]
+__all__ = ["load_sector_chain", "load_bond_theta", "load_native",
+           "build_all", "build_log", "SOURCES"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BUILD = os.path.join(_PKG, "build")
@@ -38,8 +40,24 @@ _ENTRIES = {
         "bond_theta_c128": [_P] * 4 + [_I] * 3 + [_LL] * 2 + [_I] * 3 + [_P],
     },
 }
+_U8, _I64, _D = (ctypes.POINTER(ctypes.c_uint8),
+                 ctypes.POINTER(ctypes.c_int64),
+                 ctypes.POINTER(ctypes.c_double))
+# the host library: {C entry point: (restype, argtypes)}
+_NATIVE = {
+    "ocmps_sector_count": (ctypes.c_int64, [_I] * 3),
+    "ocmps_sector_enumerate": (ctypes.c_int64, [_I] * 3 + [_U8, _LL]),
+    "ocmps_sector_hamiltonian": (
+        ctypes.c_int64, [_I] * 3 + [_U8, _LL, ctypes.c_double,
+                                    ctypes.c_double, _I64, _I64, _D]),
+    "ocmps_linsigmoid_batch": (None, [ctypes.c_double, ctypes.c_double, _I,
+                                      _I, ctypes.c_uint64, _D]),
+}
+CXX_FLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall",
+             "-shared"]
 SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
            for name in _ENTRIES}
+SOURCES["ocmps_native"] = os.path.join(_PKG, "csrc", "ocmps_native.cpp")
 
 _loaded: dict = {}
 # per library: what its build printed (ptxas register/shared-memory report),
@@ -65,12 +83,24 @@ def _lib_path(name: str) -> str:
     return os.path.join(_BUILD, f"lib{name}_{digest}.so")
 
 
+def _cxx() -> str:
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found: the host library of "
+                           "optimalcontrolmps_torch needs a C++ compiler")
+    return found
+
+
 def _start(name: str):
-    """Start nvcc for one source; returns (name, out, tmp, cmd, t0, proc)."""
+    """Start nvcc (g++ for the host library) for one source; returns
+    (name, out, tmp, cmd, t0, proc)."""
     os.makedirs(_BUILD, exist_ok=True)
     out = _lib_path(name)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCES[name]]
+    if name in _ENTRIES:
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCES[name]]
+    else:
+        cmd = [_cxx(), *CXX_FLAGS, "-o", tmp, SOURCES[name]]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return name, out, tmp, cmd, time.perf_counter(), proc
@@ -80,7 +110,8 @@ def _finish(job) -> None:
     name, out, tmp, cmd, t0, proc = job
     text, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+        raise RuntimeError(f"{os.path.basename(cmd[0])} failed "
+                           f"({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{text}")
     os.replace(tmp, out)
     build_log[name] = {"seconds": time.perf_counter() - t0, "ptxas": text,
@@ -88,7 +119,7 @@ def _finish(job) -> None:
 
 
 def build_all() -> None:
-    """Build every library that is not built yet, one nvcc each, all
+    """Build every CUDA library that is not built yet, one nvcc each, all
     started together."""
     jobs = [_start(name) for name in _ENTRIES
             if name not in _loaded and not os.path.exists(_lib_path(name))]
@@ -109,9 +140,14 @@ def _load(name: str) -> ctypes.CDLL:
     if not os.path.exists(path):
         _finish(_start(name))
     lib = ctypes.CDLL(path)
-    for fn, argtypes in _ENTRIES[name].items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = _I
+    if name in _ENTRIES:
+        for fn, argtypes in _ENTRIES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = _I
+    else:
+        for fn, (restype, argtypes) in _NATIVE.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
     _loaded[name] = lib
     return lib
 
@@ -127,3 +163,9 @@ def load_bond_theta() -> ctypes.CDLL:
     return cudaGetLastError() after their launch, or a CUDA error code for
     a tile plan that the kernel does not take."""
     return _load("bond_theta")
+
+
+def load_native() -> ctypes.CDLL:
+    """The host library (csrc/ocmps_native.cpp), built with g++ at first
+    use."""
+    return _load("ocmps_native")

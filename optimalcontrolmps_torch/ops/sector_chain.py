@@ -189,28 +189,32 @@ class _Chain(torch.autograd.Function):
         return None, None, None, None, du, None, None
 
 
-def chain_constants(st, psi0):
-    """(Wr, Wi, nn1, h0r, h0i) float32 on the stepper's device: the padded
-    J-product split into real pairs and the padded initial state."""
-    Wr = st.WJ_fwd_p.real.to(torch.float32).contiguous()
-    Wi = st.WJ_fwd_p.imag.to(torch.float32).contiguous()
-    nn1 = st.nn1_p.to(torch.float32).contiguous()
-    p0 = torch.zeros(st.ns_p, dtype=torch.complex64, device=Wr.device)
-    p0[:st.ns] = psi0.to(torch.complex64)
+def chain_constants(st, psi0, real=torch.float32):
+    """(Wr, Wi, nn1, h0r, h0i) in `real` on the stepper's device: the padded
+    J-product split into real pairs and the padded initial state. The
+    kernels take float32; float64 constants run the twins on the CPU."""
+    cplx = torch.complex64 if real == torch.float32 else torch.complex128
+    Wr = st.WJ_fwd_p.real.to(real).contiguous()
+    Wi = st.WJ_fwd_p.imag.to(real).contiguous()
+    nn1 = st.nn1_p.to(real).contiguous()
+    p0 = torch.zeros(st.ns_p, dtype=cplx, device=Wr.device)
+    p0[:st.ns] = psi0.to(cplx)
     return Wr, Wi, nn1, p0.real.contiguous(), p0.imag.contiguous()
 
 
 def chain_final(st, u_bt, psi0, consts=None):
     """Batched merged-phase chain: (B, N_t) controls -> (B, ns) final
     sector state psi_T, normalized with the doubled trailing phase
-    stripped, complex64. Differentiable in u_bt through `_Chain`, whose
-    outputs are real pairs; only the fix-up below is complex.
+    stripped, complex64 (complex128 from float64 constants).
+    Differentiable in u_bt through `_Chain`, whose outputs are real pairs;
+    only the fix-up below is complex.
 
-    `consts` is `chain_constants(st, psi0)`, built here when omitted."""
+    `consts` is `chain_constants(st, psi0)`, built here (float32) when
+    omitted; the controls are cast to its precision."""
     if consts is None:
         consts = chain_constants(st, psi0)
     Wr, Wi, nn1, h0r, h0i = consts
-    u_bt = u_bt.to(torch.float32).contiguous()
+    u_bt = u_bt.to(Wr.dtype).contiguous()
     hTr, hTi = _Chain.apply(float(st.dt), Wr, Wi, nn1, u_bt, h0r, h0i)
     hT = torch.complex(hTr, hTi)[:, :st.ns]
     ph = torch.exp((0.25j * st.dt) * u_bt[:, -1:] * st.nn1[None, :])

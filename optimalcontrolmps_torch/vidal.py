@@ -29,9 +29,13 @@ u (N_t,) or a batch (B, N_t); the lanes of a batch step together. The exact
 Hessian propagates its row states through a snake-sweep twin of the stepper
 (rows lose the Vidal form once dH is applied).
 
+Tensor parallelism: `vidal_step(tp_mesh=)` and `rollout_final_tp` split
+each stage's bonds over the ranks of a mesh's "rows" axis and all-gather
+the updated sites (`parallel/`).
+
 Not ported: the matrix carriers (`to_matrix_carriers`, the three
 `_bond_update_matfree*`), the JAX package's route for a TPU without
-factorizations; `rollout_final_tp` waits for the multi-GPU slice.
+factorizations.
 """
 
 from __future__ import annotations
@@ -48,15 +52,16 @@ from .engine import (hessian as mps_hessian, regularization,
                      regularization_grad, regularization_hessian)
 from .ops.bond_theta import bond_theta
 from .ops.trunc import _jitter, eigh
+from .parallel.comm import all_gather_cat
 from .streaming import (BlockHessian, assemble_hessian, pick_row_block,
                         rollout_measure, segmented_adjoint_gradient)
 from .tebd import TEBDStepper, _phase, tebd_step
 
 __all__ = [
     "VidalState", "schmidt_values", "to_mps", "from_mps", "vidal_step",
-    "rollout", "rollout_final", "costate_rollout", "cost", "fidelities",
-    "fidelities_streaming", "gradient", "gradient_lowmem",
-    "gradient_segmented", "cost_and_gradient", "hessian",
+    "rollout", "rollout_final", "rollout_final_tp", "costate_rollout",
+    "cost", "fidelities", "fidelities_streaming", "gradient",
+    "gradient_lowmem", "gradient_segmented", "cost_and_gradient", "hessian",
     "hessian_streaming", "bond_renyi2", "bond_vn_entropy",
     "rollout_diagnostics",
 ]
@@ -184,19 +189,49 @@ def _bond_update(Bi, Bj, lam_left, gate, chi):
     return Bi_new, Bj_new, lam, disc
 
 
-def _stage(T, lam, bonds, gate, chi, disc=None):
+def _split(n: int, parts: int) -> list:
+    """Contiguous shares of n items over `parts` ranks, the first ranks
+    taking one more (10 -> 5/5, 9 -> 5/4)."""
+    return [n // parts + (1 if r < n % parts else 0) for r in range(parts)]
+
+
+def _stage(T, lam, bonds, gate, chi, disc=None, shard=None):
     """Update the DISJOINT `bonds` of every lane as one batched call: the
     (bond, lane) pairs are stacked bond-major. T: list of L sites (Bt, chi,
     p, chi); lam: list of L-1 bonds (Bt, chi). `disc`, when given, is a
-    dict that receives each bond's discarded weight (Bt,)."""
+    dict that receives each bond's discarded weight (Bt,).
+
+    shard: a `parallel.mesh.Mesh` (tensor parallelism): the bonds are split
+    into contiguous shares over its "rows" axis (`_split`), each rank
+    updates its share in one call, and (Bi', Bj', lam'[, disc]) are
+    all-gathered over the rows group, so every rank holds the whole chain
+    for the next stage."""
     if not bonds:
         return
     Bt = T[0].shape[0]
     ones = torch.ones_like(lam[0])
-    Bi = torch.cat([T[b] for b in bonds])
-    Bj = torch.cat([T[b + 1] for b in bonds])
-    Ll = torch.cat([lam[b - 1] if b > 0 else ones for b in bonds])
-    Bi2, Bj2, lam2, disc2 = _bond_update(Bi, Bj, Ll, gate, chi)
+    todo = bonds
+    if shard is not None:
+        shares = _split(len(bonds), shard.n_rows)
+        lo = sum(shares[:shard.row_rank])
+        todo = bonds[lo:lo + shares[shard.row_rank]]
+    if todo:
+        Bi = torch.cat([T[b] for b in todo])
+        Bj = torch.cat([T[b + 1] for b in todo])
+        Ll = torch.cat([lam[b - 1] if b > 0 else ones for b in todo])
+        Bi2, Bj2, lam2, disc2 = _bond_update(Bi, Bj, Ll, gate, chi)
+    else:
+        Bi2 = T[0][:0]
+        Bj2 = T[0][:0]
+        lam2 = lam[0][:0]
+        disc2 = lam[0][:0, 0]
+    if shard is not None:
+        sizes = [c * Bt for c in shares]
+        g = shard.rows_group
+        Bi2, Bj2, lam2 = (all_gather_cat(x, g, sizes)
+                          for x in (Bi2, Bj2, lam2))
+        if disc is not None:
+            disc2 = all_gather_cat(disc2, g, sizes)
     for k, b in enumerate(bonds):
         sl = slice(k * Bt, (k + 1) * Bt)
         T[b], T[b + 1], lam[b] = Bi2[sl], Bj2[sl], lam2[sl]
@@ -205,7 +240,7 @@ def _stage(T, lam, bonds, gate, chi, disc=None):
 
 
 def vidal_step(st: TEBDStepper, state: VidalState, u_from, u_to,
-               forward: bool = True, diag: bool = False):
+               forward: bool = True, diag: bool = False, tp_mesh=None):
     """One full Trotter step of a batch (B (Bt, L, chi, p, chi), lam (Bt,
     L-1, chi)); u_from, u_to scalars or (Bt,). Same operator product as
     `tebd.tebd_step`: phases D(u_from), even J-bonds, odd J-bonds,
@@ -215,7 +250,11 @@ def vidal_step(st: TEBDStepper, state: VidalState, u_from, u_to,
     step non-unitary).
 
     diag=True also returns the (Bt, L-1) discarded weight of each bond's
-    truncation in this step: (state, disc)."""
+    truncation in this step: (state, disc).
+
+    tp_mesh: a `parallel.mesh.Mesh`; each stage's bonds are then split over
+    its "rows" axis (tensor parallelism, `_stage`), and every rank returns
+    the whole stepped state."""
     L, chi = st.L, st.chi
     B = state.B
     Bt = B.shape[0]
@@ -227,8 +266,8 @@ def vidal_step(st: TEBDStepper, state: VidalState, u_from, u_to,
     T = list((B * ph_from[:, None, None, :, None]).unbind(1))
     lam = list(state.lam.unbind(1))
     disc = {} if diag else None
-    _stage(T, lam, list(range(0, L - 1, 2)), gate, chi, disc)
-    _stage(T, lam, list(range(1, L - 1, 2)), gate, chi, disc)
+    _stage(T, lam, list(range(0, L - 1, 2)), gate, chi, disc, tp_mesh)
+    _stage(T, lam, list(range(1, L - 1, 2)), gate, chi, disc, tp_mesh)
     A = torch.stack(T, dim=1) * ph_to[:, None, None, :, None]
     nrm = mpslib.norm(A)
     A[:, 0] = A[:, 0] * torch.where(nrm > 1e-16, 1.0 / nrm,
@@ -320,6 +359,18 @@ def rollout_final(st: TEBDStepper, psi0: VidalState, u):
     """psi(T) only."""
     S, U, batched = _lanes(psi0, u)
     return _out(_final_lanes(st, S, U), batched)
+
+
+def rollout_final_tp(st: TEBDStepper, psi0: VidalState, u, mesh):
+    """rollout_final with tensor-parallel bond updates: each stage's bonds
+    are split over the mesh's "rows" axis and all-gathered after it
+    (vidal_step's tp_mesh). Every rank of the rows group calls it with the
+    same state and controls and gets the same psi(T)."""
+    S, U, batched = _lanes(psi0, u)
+    for i in range(U.shape[1] - 1):
+        S = vidal_step(st, S, U[:, i], U[:, i + 1], forward=True,
+                       tp_mesh=mesh)
+    return _out(S, batched)
 
 
 def costate_rollout(st: TEBDStepper, psi_target: VidalState, u):
@@ -451,19 +502,20 @@ def _snake_twin(st: TEBDStepper) -> TEBDStepper:
 
 
 def hessian(st: TEBDStepper, psi0: VidalState, psi_target: VidalState, u,
-            gamma, aux=None):
+            gamma, aux=None, row_shard=None):
     """Exact dense Hessian for one control u (N_t,) (calcHessian_*): the
     psi/xi trajectories and divT from the Vidal channel (`gradient`), the
     dH|psi_i> row states stepped through the snake twin
     (`engine.hessian`'s row batch). Without truncation the two channels
     are the same operator; with it they differ at the truncation error,
     the Hessian's own floor. aux: (psi_t, xi_t, divT, ov) from
-    `gradient`."""
+    `gradient`. row_shard: a mesh whose "rows" axis splits the row loop
+    (`engine.hessian`)."""
     if aux is None:
         _, aux = gradient(st, psi0, psi_target, u, gamma)
     psi_t, xi_t, divT, ov = aux
     return mps_hessian(_snake_twin(st), psi0.B, psi_target.B, u, gamma,
-                       aux=(psi_t.B, xi_t.B, divT, ov))
+                       aux=(psi_t.B, xi_t.B, divT, ov), row_shard=row_shard)
 
 
 def hessian_streaming(st: TEBDStepper, psi0: VidalState,

@@ -65,12 +65,56 @@ def test_importing_every_module_loads_no_jax():
     "optimalcontrolmps_torch/drivers/test_runtimes.py",
     "optimalcontrolmps_torch/drivers/analyze_quench.py",
     "optimalcontrolmps_torch/drivers/analyze_bond_dim.py",
+    "optimalcontrolmps_torch/parallel/comm.py",
+    "optimalcontrolmps_torch/parallel/mesh.py",
+    "optimalcontrolmps_torch/parallel/multistart.py",
+    "optimalcontrolmps_torch/parallel/dryrun.py",
+    "optimalcontrolmps_torch/parallel/spawn.py",
+    "optimalcontrolmps_torch/drivers/scaling_bench.py",
+    "optimalcontrolmps_torch/native.py",
 ])
 def test_the_slice_modules_are_checked(module):
     """The interior point, Nelder-Mead, the streaming Hessian, the AmoebaOpt
-    driver, the Vidal engine, DMRG, the observables, profiling and the
-    analysis drivers are among the files checked above."""
+    driver, the Vidal engine, DMRG, the observables, profiling, the
+    analysis drivers, the multi-device layer and the host library's
+    bindings are among the files checked above."""
     assert module in FILES
+
+
+def test_the_rank_helper_imports_no_jax():
+    """The spawned ranks of tests/test_torch_parallel.py import
+    tests/torch_parallel_world.py, which imports the port only."""
+    roots = _imported_roots("tests/torch_parallel_world.py")
+    assert "optimalcontrolmps_torch" in roots
+    assert not roots & FORBIDDEN
+
+
+def _nccl_rank(rank, world):
+    import torch
+    import torch.distributed as dist
+
+    from optimalcontrolmps_torch.parallel import comm
+    from optimalcontrolmps_torch.parallel.mesh import make_mesh
+    m = make_mesh()
+    x = torch.tensor([2.0, 1.0, 1.0], device=m.device)
+    return {"backend": dist.get_backend(), "device": str(m.device),
+            "gathered": comm.all_gather_cat(x, m.group).cpu().tolist(),
+            "argmin": comm.argmin_global(x, m.group).index}
+
+
+@pytest.mark.cuda
+def test_native_build_and_a_one_rank_nccl_world():
+    """On the card: the host library builds with g++ and loads, and a
+    world of one NCCL rank on cuda:0 runs the collectives on the card."""
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from optimalcontrolmps_torch import native
+    from optimalcontrolmps_torch.parallel.spawn import run_world
+    assert native.sector_count(10, 4, 10) == 72403
+    (out,) = run_world(_nccl_rank, 1, backend="nccl", device=None)
+    assert out == {"backend": "nccl", "device": "cuda:0",
+                   "gathered": [2.0, 1.0, 1.0], "argmin": 1}
 
 
 @pytest.mark.parametrize("tool", [

@@ -214,7 +214,7 @@ TP_STEPS, TP_OV_TOL, TP_SCHMIDT_TOL = 20, 1e-6, 1e-5
 # two ranks step each stage's bonds in other batches (5 / 5 and 5 / 4
 # instead of 10 / 9), and on the card a complex64 bond update in another
 # batch rounds differently: the Schmidt values then move by up to 3.3e-5
-# after 20 steps (my chip run 2), the density matrices' eigenvalues being
+# after 20 steps (measured on one H100), the density matrices' eigenvalues being
 # resolved only to ~eps32 of the largest (lam = sqrt(w): ~3.5e-4 at the
 # tail). So two ranks are held to TP_SCHMIDT_TOL_SPLIT, one rank (the same
 # batches) to TP_SCHMIDT_TOL; `parallel_1rank` reads the unsharded rollout

@@ -1770,8 +1770,7 @@ def drive_parallel_2rank(one: dict) -> dict:
     # spin against one another on the host's side of the work
     threads = max(1, (os.cpu_count() or 2) // 2)
     outs = run_world(two_rank_work, 2, backend="gloo", device="cuda:0",
-                     args=(one["B_h"], one["lam_h"]), threads=threads,
-                     timeout=600)
+                     args=(one["B_h"], one["lam_h"]), threads=threads)
     wall = time.perf_counter() - t0
     ref = one["sector_ref"].cpu().numpy()
     hd_ref = one["hd_ref"]

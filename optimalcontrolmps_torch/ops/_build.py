@@ -13,6 +13,7 @@ for all of them. Nothing is built or imported when this module is imported.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -53,6 +54,10 @@ _NATIVE = {
     "ocmps_linsigmoid_batch": (None, [ctypes.c_double, ctypes.c_double, _I,
                                       _I, ctypes.c_uint64, _D]),
 }
+# -march=native as the JAX package's Makefile: its FMA contractions make
+# linsigmoid_batch bitwise equal to that library's. The library's name
+# hashes what the flag resolves to on the building host (`_host_target`),
+# so a library built on one host is rebuilt, not loaded, on another.
 CXX_FLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall",
              "-shared"]
 SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
@@ -77,9 +82,25 @@ def _nvcc() -> str:
     return found
 
 
+@functools.lru_cache(maxsize=None)
+def _host_target() -> str:
+    """The target options that g++'s -march=native resolves to on this
+    host (its cc1plus line): the CPU's identity for the library's name."""
+    out = subprocess.run([_cxx(), "-march=native", "-E", "-v", "-x", "c++",
+                          os.devnull, "-o", os.devnull],
+                         capture_output=True, text=True, check=True)
+    line = next(l for l in out.stderr.splitlines() if "cc1plus" in l)
+    return " ".join(t for t in line.split()
+                    if t.startswith(("-m", "--param")))
+
+
 def _lib_path(name: str) -> str:
+    """The library's path, named after the hash of its source and flags
+    (and, for the host library, of this host's target)."""
+    flags = " ".join(NVCC_FLAGS if name in _ENTRIES
+                     else CXX_FLAGS + [_host_target()])
     with open(SOURCES[name], "rb") as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
+        digest = hashlib.sha256(fh.read() + flags.encode()).hexdigest()[:16]
     return os.path.join(_BUILD, f"lib{name}_{digest}.so")
 
 

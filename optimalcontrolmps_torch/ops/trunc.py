@@ -111,6 +111,17 @@ def _fill_short_columns(m):
     return torch.where(norms <= cut, cut * g, m)
 
 
+def _zero_underflowing_columns(m):
+    """m (..., n, r) with every column at most `_qr_floor` long set to
+    exact zero: LAPACK's complex64 geqrf returned NaN for a matrix with
+    columns near 1e-22 (squares below float32's range) beside unit ones,
+    and factors exact zero columns. Q R then differs from the input by at
+    most the floor in those columns; every other column is kept as it
+    is."""
+    norms = torch.linalg.vector_norm(m, dim=-2, keepdim=True)
+    return torch.where(norms <= _qr_floor(m.dtype), torch.zeros_like(m), m)
+
+
 def _takes_batched_geqrf(m) -> bool:
     """Whether PyTorch factors m (..., n, r) by cuBLAS's batched geqrf: on
     the card, for n <= 256 and a batch of at least max(2, n // 16)
@@ -132,10 +143,14 @@ def householder_qr(m):
     filled (`_fill_short_columns`), and Q R differs from the input in
     those columns only, by about sqrt(2 n) cuts (setting their columns of
     R to 0 afterwards, to keep the input exactly, let the next eigh fail
-    on the card). Every other QR is left as it is, so the single-lane paths,
-    the card-vs-CPU witnesses among them, factor what the CPU factors."""
+    on the card). Every other QR only has its underflowing columns set to
+    zero (`_zero_underflowing_columns`; a no-op in complex128 but for
+    columns below 1.5e-152), so the single-lane paths, the card-vs-CPU
+    witnesses among them, factor what the CPU factors."""
     if _takes_batched_geqrf(m):
         m = _fill_short_columns(m)
+    else:
+        m = _zero_underflowing_columns(m)
     return torch.linalg.qr(m, mode="reduced")
 
 

@@ -136,13 +136,12 @@ class Mesh:
         return self.rank % self.shape[1]
 
 
-def make_mesh(n: int | None = None, rows: int | None = None,
-              device=None) -> Mesh | None:
+def make_mesh(n: int | None = None, rows: int | None = None
+              ) -> Mesh | None:
     """A ("batch", "rows") mesh over the first n ranks of the default group
-    (all of them for None), shaped as the JAX make_mesh (`mesh_shape`).
-    Every rank of the world must call it (it makes process groups); ranks
-    outside the mesh get None. device: the compute device, by default
-    init_distributed's."""
+    (all of them for None), shaped as the JAX make_mesh (`mesh_shape`),
+    computing on init_distributed's device. Every rank of the world must
+    call it (it makes process groups); ranks outside the mesh get None."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh: no process group; call "
                            "init_distributed first")
@@ -157,9 +156,7 @@ def make_mesh(n: int | None = None, rows: int | None = None,
                    for b in range(nb)]
     if me >= n:
         return None
-    return Mesh(shape=(nb, nr), rank=me,
-                device=compute_device() if device is None
-                else torch.device(device),
+    return Mesh(shape=(nb, nr), rank=me, device=compute_device(),
                 group=whole, rows_group=rows_groups[me // nr])
 
 

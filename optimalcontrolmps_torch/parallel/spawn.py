@@ -18,7 +18,9 @@ import tempfile
 import time
 import traceback
 
-__all__ = ["run_world"]
+__all__ = ["run_world", "TIMEOUT"]
+
+TIMEOUT = 600.0     # seconds a world may take before run_world stops it
 
 
 def _child(fn, rank, world, backend, device, init_method, args, threads,
@@ -41,13 +43,12 @@ def _child(fn, rank, world, backend, device, init_method, args, threads,
 
 
 def run_world(fn, world: int, backend: str = "gloo", device="cpu",
-              args: tuple = (), threads: int | None = None,
-              timeout: float = 900.0) -> list:
+              args: tuple = (), threads: int | None = None) -> list:
     """fn(rank, world, *args) on `world` spawned ranks; their results in
     rank order. device is every rank's compute device (init_distributed's
     `device`: "cpu", "cuda:0" for gloo ranks sharing one card, or None for
     each rank's own card under NCCL); threads sets torch's CPU threads per
-    rank. Raises on any rank's failure or after `timeout` seconds."""
+    rank. Raises on any rank's failure or after TIMEOUT seconds."""
     ctx = mp.get_context("spawn")
     results, errors = {}, []
     with tempfile.TemporaryDirectory() as tmp:
@@ -57,7 +58,7 @@ def run_world(fn, world: int, backend: str = "gloo", device="cpu",
             threads, out), daemon=True) for r in range(world)]
         for p in procs:
             p.start()
-        deadline = time.monotonic() + timeout
+        deadline = time.monotonic() + TIMEOUT
         try:
             while len(results) + len(errors) < world:
                 try:
@@ -72,7 +73,7 @@ def run_world(fn, world: int, backend: str = "gloo", device="cpu",
                         break
                     if time.monotonic() > deadline:
                         errors.append(f"the world of {world} did not finish "
-                                      f"within {timeout} s")
+                                      f"within {TIMEOUT} s")
                         break
                     continue
                 if ok:

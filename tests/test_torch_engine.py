@@ -152,6 +152,29 @@ def test_hessian_matches_jax():
     assert np.abs(H - H.T).max() < 1e-12 * scale
 
 
+def test_hessian_complex64_snake_eigh_matches_jax():
+    """complex64, the snake sweep with eigh splits, L=3, d=2, chi=6, N_t=9
+    at the adiabatic seed (the JAX dry run's MPS shapes): LAPACK's QR gave
+    NaN in a gauge move and the next eigh raised until
+    `householder_qr` zeroed the underflowing columns. The Hessian is
+    finite and within 1e-5 of its scale of JAX's (single precision)."""
+    n9 = 9
+    u = seeds.adiabatic_seed(2.5, 50.0, n9).astype(np.float32)
+    c64 = jnp.complex64
+    st_j = jtebd.make_stepper(3, 2, J, DT, 6, dtype=c64)
+    pi_j = jgs.initialize_state(3, 2, 3, J, 2.5, 6, dtype=c64)
+    pf_j = jgs.initialize_state(3, 2, 3, J, 50.0, 6, dtype=c64)
+    H_j = np.asarray(jax.jit(lambda uu: jengine.hessian(
+        st_j, pi_j, pf_j, uu, 1e-6))(jnp.asarray(u)))
+    kw = dict(dtype=torch.complex64, device="cpu")
+    st = tebd.make_stepper(3, 2, J, DT, 6, **kw)
+    pi = groundstate.initialize_state(3, 2, 3, J, 2.5, 6, **kw)
+    pf = groundstate.initialize_state(3, 2, 3, J, 50.0, 6, **kw)
+    H = engine.hessian(st, pi, pf, torch.as_tensor(u), 1e-6).numpy()
+    assert np.isfinite(H).all()
+    assert np.abs(H - H_j).max() < 1e-5 * np.abs(H_j).max()
+
+
 def test_problem_surface_matches_jax(prob):
     (st_j, pi_j, pf_j, b_j), (st, pi, pf, b), _ = prob
     c = np.random.default_rng(11).normal(0.0, 0.5, M)

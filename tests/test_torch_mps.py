@@ -122,7 +122,8 @@ def test_zero_columns_are_filled_and_nothing_else():
     other column is kept bit for bit, and the QR of the filled batch is
     finite and reproduces the input. Only a CUDA batch at least
     max(2, n // 16) deep with n <= 256 takes that QR; a CPU tensor is not
-    filled."""
+    filled, only its columns at most 100 sqrt(tiny) long are set to zero
+    (`test_underflowing_columns_are_zeroed_before_other_qrs`)."""
     rng = np.random.default_rng(5)
     m0 = torch.as_tensor(rng.standard_normal((4, 40, 12))
                          + 1j * rng.standard_normal((4, 40, 12)))
@@ -157,7 +158,8 @@ def test_zero_columns_are_filled_and_nothing_else():
         _close(q.conj().transpose(-2, -1) @ q,
                torch.eye(12, dtype=q.dtype).expand(4, 12, 12), tol)
         q0, r0 = trunc.householder_qr(m)
-        qc, rc = torch.linalg.qr(m, mode="reduced")
+        qc, rc = torch.linalg.qr(trunc._zero_underflowing_columns(m),
+                                 mode="reduced")
         assert torch.equal(q0, qc) and torch.equal(r0, rc)
     assert 1e-152 < trunc._qr_floor(torch.complex128) < 2e-152
     assert 1e-17 < trunc._qr_floor(torch.complex64) < 2e-17
@@ -173,6 +175,39 @@ def test_zero_columns_are_filled_and_nothing_else():
         t.shape = shape
         assert trunc._takes_batched_geqrf(t) == batched
     assert not trunc._takes_batched_geqrf(m0)
+
+
+def test_underflowing_columns_are_zeroed_before_other_qrs():
+    """Outside cuBLAS's batched QR, the columns at most 100 sqrt(tiny) long
+    (1.1e-17 in complex64, 1.5e-152 in complex128) are set to exact zero
+    and every other column is kept bit for bit. LAPACK's complex64 QR
+    returned NaN for a rank-one matrix whose columns lie between 1e-22 and
+    1e-17 (the gauge move of `apply_site_sum_diag` in a complex64 snake
+    Hessian at L=3, d=2, chi=6): `householder_qr` factors it, finite, with
+    Q unitary to 1e-6 and Q R within the floor of the input."""
+    rng = np.random.default_rng(11)
+    m0 = torch.as_tensor(rng.standard_normal((3, 20, 6))
+                         + 1j * rng.standard_normal((3, 20, 6)))
+    m0[0, :, 1] *= 1e-20
+    m0[1, :, 4] *= 1e-200
+    m0[2, :, 0] = 0
+    for dtype in (torch.complex64, torch.complex128):
+        m = m0.to(dtype)
+        short = torch.linalg.vector_norm(m, dim=-2) <= trunc._qr_floor(dtype)
+        want = torch.zeros((3, 6), dtype=torch.bool)
+        want[1, 4] = want[2, 0] = True
+        want[0, 1] = dtype == torch.complex64
+        assert torch.equal(short, want)
+        z = trunc._zero_underflowing_columns(m).transpose(-2, -1)
+        assert not bool(z[short].any())
+        assert torch.equal(z[~short], m.transpose(-2, -1)[~short])
+    m = torch.zeros((4, 4), dtype=torch.complex64)
+    m[3] = torch.tensor([-1.19e-17 - 3.28e-18j, -2.33e-18 + 3.98e-18j,
+                         9.75e-23 + 7.02e-23j, -4.76e-22 + 1.01e-23j])
+    q, r = trunc.householder_qr(m)
+    assert bool(torch.isfinite(q).all() and torch.isfinite(r).all())
+    assert float((q @ r - m).abs().max()) <= trunc._qr_floor(m.dtype)
+    _close(q.conj().T @ q, torch.eye(4, dtype=q.dtype), 1e-6)
 
 
 def test_apply_site_sum_diag(states):

@@ -47,8 +47,7 @@ WORLD = 2
 
 @pytest.fixture(scope="module")
 def ranks():
-    return run_world(W.rank_work, WORLD, "gloo", "cpu", threads=2,
-                     timeout=600)
+    return run_world(W.rank_work, WORLD, "gloo", "cpu", threads=2)
 
 
 @pytest.fixture(scope="module")

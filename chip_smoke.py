@@ -228,11 +228,14 @@ TP_THETA_SHAPES = ((5, 128, 8), (4, 128, 8))
 NATIVE_CASES = ((10, 4, 10), (12, 5, 12))
 NATIVE_COO_TOL = 1e-12
 
-# published H100 SXM peaks (NVIDIA data sheet): memory; fp32 outside the
-# tensor cores; fp64 through the tensor cores (DMMA), the card's peak for the
-# type (34 TFLOP/s on the CUDA cores, which these kernels use)
+# published H100 SXM peaks (NVIDIA data sheet): memory; fp32 on the CUDA
+# cores; fp64 through the tensor cores (DMMA), the card's peak for the type
+# (34 TFLOP/s on the CUDA cores, which the bond theta uses); dense TF32 on
+# the tensor cores, where an fp32-grade product takes TF32_PASSES passes
+# (3xTF32: small*big + big*small + big*big), the sector kernels' route
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
+PEAK_TF32, TF32_PASSES = 495e12, 3
 
 
 def fail(msg: str) -> None:
@@ -255,10 +258,10 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(ops: float, nbytes: float, real) -> tuple:
+def bound(ops: float, nbytes: float, peak: float) -> tuple:
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the peak rate of their type."""
-    t_ops = ops / PEAK_FLOPS[real] * 1e3
+    operations over the peak rate (FLOP/s) of the route that does them."""
+    t_ops = ops / peak * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
@@ -293,7 +296,9 @@ def launch_counts() -> dict:
 
 
 def check_sector_chain(batch: int) -> dict:
-    """Both sector-chain kernels against their twins at (batch, N_t=201)."""
+    """Both sector-chain kernels against their twins at N_t=201, at batch
+    (the flagship's, also timed) and at batch // 2 (a rank's share in
+    parallel_2rank, which the kernels tile in 16-row n-tiles, not 32)."""
     from optimalcontrolmps_torch import flagship
     from optimalcontrolmps_torch.ops import sector_chain as sc
     from optimalcontrolmps_torch.seeds import adiabatic_seed
@@ -302,54 +307,74 @@ def check_sector_chain(batch: int) -> dict:
     prob = flagship.make_problem(dev)
     st = prob.st
     Wr, Wi, nn1, h0r, h0i = sc.chain_constants(st, prob.psi_i)
-    B, n_t, n = batch, int(round(flagship.T / flagship.DT)) + 1, Wr.shape[0]
-    rng = np.random.default_rng(0)
-    u_np = (adiabatic_seed(2.5, 50.0, n_t)[None]
-            + rng.normal(0.0, 0.3, (B, n_t))).astype(np.float32)
-    u = torch.as_tensor(u_np, device=dev)
+    n_t, n = int(round(flagship.T / flagship.DT)) + 1, Wr.shape[0]
     dt = st.dt
 
-    hT_k = sc.chain_fwd(dt, Wr, Wi, nn1, u, h0r, h0i)
-    hT_p = sc.chain_final_scan(dt, Wr, Wi, nn1, u, h0r, h0i)
-    torch.cuda.synchronize()
-    fwd_err = max(float(torch.max(torch.abs(a - b)))
-                  for a, b in zip(hT_k, hT_p))
-    gTr, gTi = (torch.as_tensor(rng.normal(size=(B, n)).astype(np.float32),
-                                device=dev) for _ in range(2))
-    du_k = sc.chain_bwd(dt, Wr, Wi, nn1, u, *hT_p, gTr, gTi)
-    du_p = sc.scan_bwd(dt, Wr, Wi, nn1, u, *hT_p, gTr, gTi)
-    torch.cuda.synchronize()
-    bwd_err = float(torch.max(torch.abs(du_k - du_p)))
-    bwd_scale = max(float(torch.max(torch.abs(du_p))), 1.0)
+    def check(B):
+        rng = np.random.default_rng(0)
+        u = torch.as_tensor((adiabatic_seed(2.5, 50.0, n_t)[None]
+                             + rng.normal(0.0, 0.3, (B, n_t))
+                             ).astype(np.float32), device=dev)
+        hT_k = sc.chain_fwd(dt, Wr, Wi, nn1, u, h0r, h0i)
+        hT_p = sc.chain_final_scan(dt, Wr, Wi, nn1, u, h0r, h0i)
+        torch.cuda.synchronize()
+        fwd_err = max(float(torch.max(torch.abs(a - b)))
+                      for a, b in zip(hT_k, hT_p))
+        gT = [torch.as_tensor(rng.normal(size=(B, n)).astype(np.float32),
+                              device=dev) for _ in range(2)]
+        du_k = sc.chain_bwd(dt, Wr, Wi, nn1, u, *hT_p, *gT)
+        du_p = sc.scan_bwd(dt, Wr, Wi, nn1, u, *hT_p, *gT)
+        torch.cuda.synchronize()
+        bwd_err = float(torch.max(torch.abs(du_k - du_p)))
+        bwd_scale = max(float(torch.max(torch.abs(du_p))), 1.0)
+        print(f"sector kernels vs twins (B={B}, N_t={n_t}): fwd max|dh| = "
+              f"{fwd_err:.3e} (limit {FWD_TOL:.0e}), bwd max|ddu| = "
+              f"{bwd_err:.3e} (limit {BWD_TOL:.0e} x {bwd_scale:.3e})")
+        if not fwd_err <= FWD_TOL:
+            fail(f"sector fwd kernel disagrees with its twin at B={B}: "
+                 f"{fwd_err}")
+        if not bwd_err <= BWD_TOL * bwd_scale:
+            fail(f"sector bwd kernel disagrees with its twin at B={B}: "
+                 f"{bwd_err}")
+        return u, hT_p, gT, fwd_err, bwd_err
+
+    B = batch
+    u, hT_p, gT, fwd_err, bwd_err = check(B)
+    _, _, _, half_fwd_err, half_bwd_err = check(B // 2)
+    fwd_err, bwd_err = max(fwd_err, half_fwd_err), max(bwd_err, half_bwd_err)
 
     fwd_ms = cuda_ms(lambda: sc.chain_fwd(dt, Wr, Wi, nn1, u, h0r, h0i), 20)
     fwd_plain_ms = cuda_ms(
         lambda: sc.chain_final_scan(dt, Wr, Wi, nn1, u, h0r, h0i), 5)
-    bwd_ms = cuda_ms(
-        lambda: sc.chain_bwd(dt, Wr, Wi, nn1, u, *hT_p, gTr, gTi), 20)
+    bwd_ms = cuda_ms(lambda: sc.chain_bwd(dt, Wr, Wi, nn1, u, *hT_p, *gT), 20)
     bwd_plain_ms = cuda_ms(
-        lambda: sc.scan_bwd(dt, Wr, Wi, nn1, u, *hT_p, gTr, gTi), 5)
-    print(f"sector fwd kernel vs twin (B={B}, N_t={n_t}): max|dh| = "
-          f"{fwd_err:.3e} (limit {FWD_TOL:.0e}); kernel {fwd_ms:.4f} ms, "
-          f"twin {fwd_plain_ms:.4f} ms")
-    print(f"sector bwd kernel vs twin (B={B}, N_t={n_t}): max|ddu| = "
-          f"{bwd_err:.3e} (limit {BWD_TOL:.0e} x {bwd_scale:.3e}); kernel "
-          f"{bwd_ms:.4f} ms, twin {bwd_plain_ms:.4f} ms")
-    if not fwd_err <= FWD_TOL:
-        fail(f"sector fwd kernel disagrees with its twin: {fwd_err}")
-    if not bwd_err <= BWD_TOL * bwd_scale:
-        fail(f"sector bwd kernel disagrees with its twin: {bwd_err}")
+        lambda: sc.scan_bwd(dt, Wr, Wi, nn1, u, *hT_p, *gT), 5)
 
-    # per step and row: four real (n x n) products forward; the reversible
-    # backward rebuilds h and carries g, eight. Bytes: inputs once, outputs
-    # once, float32.
-    steps, f32 = n_t - 1, 4
-    fwd_bound = bound(2 * 4 * n * n * steps * B,
-                      f32 * (2 * n * n + 3 * n + B * n_t + 2 * B * n),
-                      torch.float32)
-    bwd_bound = bound(2 * 8 * n * n * steps * B,
-                      f32 * (2 * n * n + n + B * n_t + 4 * B * n
-                             + B * n_t), torch.float32)
+    # per step and row: four real (ns x ns) products forward; the
+    # reversible backward rebuilds h and carries g, eight. ns = 121 states
+    # of the padded 128 (W is the identity on the padding). Bytes: inputs
+    # once, outputs once, float32. Two routes: the CUDA cores' fp32 rate,
+    # and three TF32 passes on the tensor cores (the kernels' route); the
+    # bound is the lesser, and both are printed with the share.
+    ns, steps, f32 = st.ns, n_t - 1, 4
+    work = {
+        "fwd": (2 * 4 * ns * ns * steps * B,
+                f32 * (2 * ns * ns + 3 * ns + B * n_t + 2 * B * ns), fwd_ms,
+                fwd_plain_ms),
+        "bwd": (2 * 8 * ns * ns * steps * B,
+                f32 * (2 * ns * ns + ns + B * n_t + 4 * B * ns + B * n_t),
+                bwd_ms, bwd_plain_ms)}
+    bounds = {}
+    for name, (ops, nbytes, ms, plain_ms) in work.items():
+        cuda_cores = bound(ops, nbytes, PEAK_FLOPS[torch.float32])
+        tensor_cores = bound(ops, nbytes, PEAK_TF32 / TF32_PASSES)
+        bounds[name] = min(cuda_cores, tensor_cores)
+        print(f"sector {name} kernel (B={B}, N_t={n_t}): {ms:.4f} ms, twin "
+              f"{plain_ms:.4f} ms; bounds (ns={ns}): CUDA cores "
+              f"{cuda_cores[0]:.4f} ms, tensor cores 3xTF32 "
+              f"{tensor_cores[0]:.4f} ms; {100 * bounds[name][0] / ms:.1f}% "
+              f"of the lesser ({bounds[name][1]})")
+    fwd_bound, bwd_bound = bounds["fwd"], bounds["bwd"]
     base = {"route": "cuda", "source": SECTOR_SOURCE, "library_ms": None}
     return {
         "sector_chain_fwd": {
@@ -406,7 +431,7 @@ def theta_bound(B, chi, p, dtype) -> tuple:
     csize = 16 if dtype == torch.complex128 else 8
     ops = 8 * (chi ** 3 * p ** 2 + p ** 4 * chi ** 2) * B
     nbytes = csize * (B * (2 * chi * chi * p + chi * chi * p * p) + p ** 4)
-    return bound(ops, nbytes, real)
+    return bound(ops, nbytes, PEAK_FLOPS[real])
 
 
 # (B, chi, p, dtype): the MPS main path's bond (LANES, 25, 5) complex128
@@ -1894,7 +1919,9 @@ def main() -> None:
     for name, log in _build.build_log.items():
         print(f"build {name}: nvcc {log['seconds']:.2f} s: {log['cmd']}")
         for line in log["ptxas"].splitlines():
-            if "registers" in line or "Compiling" in line or "spill" in line:
+            # the C7514 note is ptxas serializing wgmma groups
+            if any(k in line for k in ("registers", "Compiling", "spill",
+                                       "C7514")):
                 print(f"  ptxas: {line.strip()}")
     phases.done("build")
 

@@ -44,17 +44,23 @@ def prob(dev):
     return flagship.make_problem(dev)
 
 
-def _controls(B, seed):
+def _controls(B, seed, n_t=N_T):
     rng = np.random.default_rng(seed)
-    return (adiabatic_seed(2.5, 50.0, N_T)[None]
-            + rng.normal(0.0, 0.3, (B, N_T))).astype(np.float32)
+    base = adiabatic_seed(2.5, 50.0, n_t) if n_t > 1 else np.asarray([2.5])
+    return (base[None] + rng.normal(0.0, 0.3, (B, n_t))).astype(np.float32)
 
 
-# B=250 leaves a ragged last tile of 26 rows; 4096 is the flagship batch
-@pytest.mark.parametrize("B", [250, 4096])
-def test_kernels_match_twins(dev, prob, B):
+# The kernels tile a block's rows by the batch: 8 rows up to B = 1056, 16
+# up to 2112, then 32 (on 132 SMs). B=250 leaves a ragged last tile; 4096 is
+# the flagship batch; B=1 a single row; B=1000 is no multiple of the 8-row
+# tile; 2048 is a rank's share in two-rank multistart and 1500 a ragged
+# batch, both on 16-row tiles; N_t = 1 (no step) and 2 (one step)
+@pytest.mark.parametrize("B, n_t", [(250, N_T), (4096, N_T), (1, N_T),
+                                    (1000, N_T), (2048, N_T), (1500, N_T),
+                                    (4096, 1), (4096, 2), (37, 2)])
+def test_kernels_match_twins(dev, prob, B, n_t):
     consts = sc.chain_constants(prob.st, prob.psi_i)
-    u = torch.as_tensor(_controls(B, 0), device=dev)
+    u = torch.as_tensor(_controls(B, 0, n_t), device=dev)
     dt = prob.st.dt
     ref = sc.chain_final_scan(dt, *consts[:3], u, *consts[3:])
     out = sc.chain_fwd(dt, *consts[:3], u, *consts[3:])
@@ -67,6 +73,29 @@ def test_kernels_match_twins(dev, prob, B):
                           device=dev) for _ in range(2)]
     du = sc.chain_bwd(dt, *consts[:3], u, *ref, *gT)
     du_ref = sc.scan_bwd(dt, *consts[:3], u, *ref, *gT)
+    torch.cuda.synchronize()
+    assert du.shape == (B, n_t)
+    scale = max(float(torch.max(torch.abs(du_ref))), 1.0)
+    assert float(torch.max(torch.abs(du - du_ref))) <= BWD_TOL * scale
+
+
+def test_kernels_match_twins_without_a_phase_table(dev, prob):
+    """128 distinct nn1 values: more than the kernels' phase table holds,
+    so the phase is taken per element."""
+    Wr, Wi, _, h0r, h0i = sc.chain_constants(prob.st, prob.psi_i)
+    nn1 = torch.as_tensor(np.random.default_rng(3).uniform(
+        0.0, 12.0, 128).astype(np.float32), device=dev)
+    u = torch.as_tensor(_controls(256, 4, 51), device=dev)
+    dt = prob.st.dt
+    ref = sc.chain_final_scan(dt, Wr, Wi, nn1, u, h0r, h0i)
+    out = sc.chain_fwd(dt, Wr, Wi, nn1, u, h0r, h0i)
+    for a, b in zip(out, ref):
+        assert float(torch.max(torch.abs(a - b))) <= FWD_TOL
+    rng = np.random.default_rng(5)
+    gT = [torch.as_tensor(rng.normal(size=(256, 128)).astype(np.float32),
+                          device=dev) for _ in range(2)]
+    du = sc.chain_bwd(dt, Wr, Wi, nn1, u, *ref, *gT)
+    du_ref = sc.scan_bwd(dt, Wr, Wi, nn1, u, *ref, *gT)
     torch.cuda.synchronize()
     scale = max(float(torch.max(torch.abs(du_ref))), 1.0)
     assert float(torch.max(torch.abs(du - du_ref))) <= BWD_TOL * scale

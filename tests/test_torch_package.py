@@ -120,7 +120,7 @@ def test_native_build_and_a_one_rank_nccl_world():
 @pytest.mark.parametrize("tool", [
     "tools/probe_mps_step.py", "tools/probe_ip_hessian.py",
     "tools/compare_bond_theta.py", "tools/probe_vidal_dmrg.py",
-    "tools/probe_analysis.py"])
+    "tools/probe_analysis.py", "tools/compare_sector_chain.py"])
 def test_the_port_tools_are_checked(tool):
     """The port's probes are found among the tools and checked above (the
     JAX package's own probes import JAX and are not the port's)."""

@@ -4,6 +4,12 @@ On the CPU the chain runs its plain PyTorch twins; they are held to the JAX
 package's scan references `_chain_final_scan` / `_scan_bwd` (the algebra of
 the Pallas kernels) at the tolerances of tests/test_pallas_sector.py. The
 CUDA kernels are held to the twins in tests/test_torch_cuda_kernels.py.
+
+The kernels run the chain's products on the tensor cores in 3xTF32: each
+operand split into big = tf32(x) and small = tf32(x - big), a product
+small*big + big*small + big*big accumulated in fp32. The parity tests at the
+end hold that arithmetic, emulated here, to the same tolerances at the
+flagship's widths, and show that single-pass TF32 misses them.
 """
 
 import dataclasses
@@ -25,6 +31,8 @@ torch.set_num_threads(2)
 
 T, DT, L, D, NPART, GAMMA = 0.5, 0.01, 5, 4, 5, 1e-6
 N = int(round(T / DT)) + 1
+FWD_TOL = 2e-5   # tests/test_pallas_sector.py:51
+BWD_TOL = 3e-5   # times max(max|du|, 1), tests/test_pallas_sector.py:75
 
 
 @pytest.fixture(scope="module")
@@ -151,3 +159,124 @@ def test_kernel_wrappers_reject_cpu_tensors(prob):
         sc._launch_fwd(DT, *map(_t, consts[:3]), _t(u_bt),
                        *map(_t, consts[3:]))
 
+
+
+# ---------------------------------------------------------------------------
+# 3xTF32 parity: the kernels' arithmetic, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+def _tf32(x):
+    """float32 -> TF32 (10 mantissa bits) as float32: round to nearest on
+    the bit pattern, ties away from zero (cvt.rna.tf32.f32), for finite x."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(x, w):
+    """x @ w with both operands split big + small in TF32: three products
+    (small terms first), each exact in fp32, accumulated in fp32."""
+    xb, wb = _tf32(x), _tf32(w)
+    xs, ws = _tf32(x - xb), _tf32(w - wb)
+    return (xs @ wb + xb @ ws) + xb @ wb
+
+
+def _mm_tf32(x, w):
+    return _tf32(x) @ _tf32(w)
+
+
+def _chain_with(mm, dt, Wr, Wi, nn1, u_bt, h0r, h0i):
+    """chain_final_scan with its products taken by mm."""
+    ph0 = (-0.25 * dt) * torch.outer(u_bt[:, 0], nn1)
+    c0, s0 = torch.cos(ph0), torch.sin(ph0)
+    hr = c0 * h0r[None, :] - s0 * h0i[None, :]
+    hi = c0 * h0i[None, :] + s0 * h0r[None, :]
+    WrT, WiT = Wr.T, Wi.T
+    for i in range(1, u_bt.shape[1]):
+        ar = mm(hr, WrT) - mm(hi, WiT)
+        ai = mm(hr, WiT) + mm(hi, WrT)
+        ph = (-0.5 * dt) * torch.outer(u_bt[:, i], nn1)
+        c, s = torch.cos(ph), torch.sin(ph)
+        hr, hi = c * ar - s * ai, c * ai + s * ar
+    return hr, hi
+
+
+def _bwd_with(mm, dt, Wr, Wi, nn1, u_bt, hr, hi, gr, gi):
+    """scan_bwd with its products taken by mm."""
+    n_t = u_bt.shape[1]
+    du = [None] * n_t
+    for i in range(n_t - 1, 0, -1):
+        du[i] = (-0.5 * dt) * torch.sum(nn1[None, :] * (gi * hr - gr * hi),
+                                        dim=1)
+        ph = (-0.5 * dt) * torch.outer(u_bt[:, i], nn1)
+        c, s = torch.cos(ph), torch.sin(ph)
+        ar, ai = c * hr + s * hi, c * hi - s * hr
+        br, bi = c * gr + s * gi, c * gi - s * gr
+        hr, hi = mm(ar, Wr) + mm(ai, Wi), mm(ai, Wr) - mm(ar, Wi)
+        gr, gi = mm(br, Wr) + mm(bi, Wi), mm(bi, Wr) - mm(br, Wi)
+    du[0] = (-0.25 * dt) * torch.sum(nn1[None, :] * (gi * hr - gr * hi),
+                                     dim=1)
+    return torch.stack(du, dim=1)
+
+
+@pytest.fixture(scope="module")
+def flagship_chain(prob):
+    """The flagship's widths: its W (the fixture's stepper: L=5, d=4,
+    Npart=5, dt=0.01), B=64 lanes, N_t=201, numpy seed 11; the fp32 twins'
+    outputs and JAX's scans at float64 on the same inputs."""
+    consts = [_t(c) for c in prob[5]]
+    n_t = 201
+    rng = np.random.default_rng(11)
+    u = (jseeds.adiabatic_seed(2.5, 50.0, n_t)[None]
+         + rng.normal(0.0, 0.3, (64, n_t))).astype(np.float32)
+    gT = rng.normal(size=(2, 64, 128)).astype(np.float32)
+    u_t = _t(u)
+    hT = sc.chain_final_scan(DT, *consts[:3], u_t, *consts[3:])
+    bwd_args = (*consts[:3], u_t, *hT, _t(gT[0]), _t(gT[1]))
+    du = sc.scan_bwd(DT, *bwd_args)
+    f64 = [jnp.asarray(np.asarray(a, np.float64)) for a in bwd_args]
+    hT_j = jps._chain_final_scan(DT, *f64[:4], *[jnp.asarray(
+        np.asarray(c, np.float64)) for c in prob[5][3:]])
+    du_j = jps._scan_bwd(DT, *f64)
+    return consts, u_t, bwd_args, hT, du, [np.asarray(a) for a in hT_j], \
+        np.asarray(du_j)
+
+
+def _max_diff(a, b):
+    return max(float(np.max(np.abs(np.asarray(x, np.float64)
+                                   - np.asarray(y, np.float64))))
+               for x, y in zip(a, b))
+
+
+def test_tf32_rounding_is_to_nearest():
+    x = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 2.0 ** -11 + 2.0 ** -20,
+                      1.0 + 2.0 ** -12, -(1.0 + 3 * 2.0 ** -11), 0.1],
+                     dtype=torch.float32)
+    # a tie rounds away from zero; above it, up; below it, down
+    want = [1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10, 1.0, -(1.0 + 2.0 ** -9),
+            0.0999755859375]
+    assert _tf32(x).tolist() == want
+    bits = _tf32(torch.randn(1000)).view(torch.int32)
+    assert not torch.any(bits & 0x1FFF)
+
+
+def test_3xtf32_chain_holds_the_fwd_gate(flagship_chain):
+    consts, u_t, _, hT, _, hT_j, _ = flagship_chain
+    h3 = _chain_with(_mm_3xtf32, DT, *consts[:3], u_t, *consts[3:])
+    assert _max_diff(h3, hT) <= FWD_TOL
+    assert _max_diff(h3, hT_j) <= FWD_TOL
+
+
+def test_3xtf32_backward_holds_the_bwd_gate(flagship_chain):
+    _, _, bwd_args, _, du, _, du_j = flagship_chain
+    du3 = _bwd_with(_mm_3xtf32, DT, *bwd_args)
+    assert du3.shape == (64, 201)
+    scale = max(float(np.max(np.abs(du_j))), 1.0)
+    assert _max_diff([du3], [du]) <= BWD_TOL * scale
+    assert _max_diff([du3], [du_j]) <= BWD_TOL * scale
+
+
+def test_single_pass_tf32_misses_the_fwd_gate(flagship_chain):
+    """Why the kernels split: one TF32 pass is ~1e-2 off after 201 steps."""
+    consts, u_t, _, _, _, hT_j, _ = flagship_chain
+    h1 = _chain_with(_mm_tf32, DT, *consts[:3], u_t, *consts[3:])
+    assert _max_diff(h1, hT_j) > 100 * FWD_TOL

@@ -7,7 +7,9 @@ with other runs), calls fn(rank, world, *args) on every rank and returns
 the ranks' results in rank order. fn and its results must pickle (a
 module-level function; tensors moved to the host). A rank that raises, or
 dies, fails the whole world: the others are stopped and RuntimeError
-carries the rank's traceback.
+carries the rank's traceback. The world has TIMEOUT seconds from its start
+to the last rank's exit; at that deadline the ranks still alive are
+killed and joined, and RuntimeError names the ranks that did not report.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import traceback
 
 __all__ = ["run_world", "TIMEOUT"]
 
-TIMEOUT = 600.0     # seconds a world may take before run_world stops it
+TIMEOUT = 600.0     # seconds from the ranks' start to their exit
 
 
 def _child(fn, rank, world, backend, device, init_method, args, threads,
@@ -60,9 +62,15 @@ def run_world(fn, world: int, backend: str = "gloo", device="cpu",
             p.start()
         deadline = time.monotonic() + TIMEOUT
         try:
-            while len(results) + len(errors) < world:
+            while len(results) < world and not errors:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    late = [r for r in range(world) if r not in results]
+                    errors.append(f"rank(s) {late} did not report within "
+                                  f"{TIMEOUT} s")
+                    break
                 try:
-                    rank, ok, payload = out.get(timeout=1.0)
+                    rank, ok, payload = out.get(timeout=min(1.0, left))
                 except queue.Empty:
                     dead = [r for r, p in enumerate(procs)
                             if p.exitcode not in (None, 0)
@@ -70,25 +78,18 @@ def run_world(fn, world: int, backend: str = "gloo", device="cpu",
                     if dead:
                         errors.append(f"rank(s) {dead} died (exit codes "
                                       f"{[procs[r].exitcode for r in dead]})")
-                        break
-                    if time.monotonic() > deadline:
-                        errors.append(f"the world of {world} did not finish "
-                                      f"within {TIMEOUT} s")
-                        break
                     continue
                 if ok:
                     results[rank] = payload
                 else:
                     errors.append(f"rank {rank} failed:\n{payload}")
-                    break
         finally:
             for p in procs:
-                if errors:
-                    p.terminate()
-                p.join(timeout=60)
+                if len(results) == world:     # all reported: let them exit
+                    p.join(timeout=max(0.0, deadline - time.monotonic()))
                 if p.is_alive():
                     p.kill()
-                    p.join()
+                p.join()
     if errors:
         raise RuntimeError("run_world: " + "\n".join(errors))
     return [results[r] for r in range(world)]

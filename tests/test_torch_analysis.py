@@ -13,7 +13,6 @@ import os
 
 import numpy as np
 import pytest
-import torch
 
 from optimalcontrolmps_tpu.drivers import analyze_bond_dim as janalyze_bd
 from optimalcontrolmps_tpu.drivers import analyze_quench as janalyze_q
@@ -30,7 +29,6 @@ from optimalcontrolmps_torch.drivers import optimize_ramp as toptimize
 from optimalcontrolmps_torch.drivers import prep_states as tprep
 from optimalcontrolmps_torch.drivers import test_runtimes as truntimes
 
-torch.set_num_threads(2)
 
 TOL = 1e-8
 TINY = """input

@@ -21,7 +21,6 @@ from optimalcontrolmps_torch import tebd
 from optimalcontrolmps_torch.ops import bond_theta as bt
 from optimalcontrolmps_torch.ops.gates import j_gate
 
-torch.set_num_threads(2)
 
 # (B, chi, p); (2, 13, 4) is ragged for both of the kernel's tiles
 SHAPES = [(4, 16, 3), (3, 25, 5), (2, 13, 4)]

@@ -20,8 +20,6 @@ from optimalcontrolmps_tpu import dmrg as jdmrg
 from optimalcontrolmps_torch import dmrg, groundstate, mps
 from optimalcontrolmps_torch.sites import op
 
-torch.set_num_threads(2)
-
 
 def test_ramp_schedule_matches_jax():
     for chi in (8, 10, 25, 64, 128, 200, 256):

@@ -25,7 +25,6 @@ from optimalcontrolmps_torch import engine as tengine
 from optimalcontrolmps_torch.drivers import common
 from optimalcontrolmps_torch.drivers import optimize_ramp as driver
 
-torch.set_num_threads(2)
 
 TINY = """input
 {{

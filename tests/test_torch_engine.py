@@ -28,7 +28,6 @@ from optimalcontrolmps_tpu import tebd as jtebd
 from optimalcontrolmps_torch import (backends, control, engine, groundstate,
                                      problem, sector, seeds, tebd)
 
-torch.set_num_threads(2)
 
 L, D, NPART, J, CHI = 4, 3, 4, 1.0, 16
 T, DT, M, GAMMA = 0.1, 0.01, 4, 1e-3

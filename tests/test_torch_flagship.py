@@ -7,7 +7,6 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
-import torch
 
 from optimalcontrolmps_tpu import control as jcontrol
 from optimalcontrolmps_tpu import sector as jsector
@@ -20,7 +19,6 @@ from optimalcontrolmps_tpu.optimize.lbfgs import minimize_lbfgs_batch as jbatch
 from optimalcontrolmps_tpu.optimize.penalty import bound_penalty as jpen
 from optimalcontrolmps_torch import flagship
 
-torch.set_num_threads(2)
 
 T, M, B = 0.5, 8, 8
 DT, GAMMA = flagship.DT, flagship.GAMMA

@@ -27,7 +27,6 @@ from optimalcontrolmps_tpu.optimize import interior_point as jip
 from optimalcontrolmps_torch import control, engine, groundstate, seeds, tebd
 from optimalcontrolmps_torch.optimize import interior_point as tip
 
-torch.set_num_threads(2)
 F64 = torch.float64
 
 

@@ -18,7 +18,6 @@ from optimalcontrolmps_tpu.sites import nn1_diag, op
 from optimalcontrolmps_torch import mps
 from optimalcontrolmps_torch.ops import trunc
 
-torch.set_num_threads(2)
 
 L, P, CHI = 4, 3, 9
 TOL = 1e-10

@@ -33,7 +33,6 @@ from optimalcontrolmps_torch import sites as tsites
 from optimalcontrolmps_torch import streaming as tstreaming
 from optimalcontrolmps_torch.drivers import common as tcommon
 
-torch.set_num_threads(2)
 
 L, D, NPART, CHI = 5, 4, 5, 30
 TOL = 1e-10

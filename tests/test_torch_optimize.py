@@ -19,7 +19,6 @@ from optimalcontrolmps_torch.optimize import (minimize_lbfgs,
                                               minimize_lbfgs_batch,
                                               minimize_newton)
 
-torch.set_num_threads(2)
 
 NDIM, NQUAD = 6, 5
 LANES = NQUAD + 1  # five quadratics, then one Rosenbrock lane

@@ -127,6 +127,17 @@ def test_the_port_tools_are_checked(tool):
     assert tool in TOOLS
 
 
+def test_the_thread_budget_holds_in_a_test_process():
+    """The repository's conftest.py sets OMP_NUM_THREADS (OpenBLAS, MKL,
+    OpenMP) before torch loads, and torch's intra-op threads follow it."""
+    import os
+
+    import torch
+
+    assert "OMP_NUM_THREADS" in os.environ
+    assert torch.get_num_threads() == int(os.environ["OMP_NUM_THREADS"])
+
+
 def test_entry_points_print_usage_without_arguments(capsys):
     from optimalcontrolmps_torch.drivers import (amoeba_opt,
                                                  extend_time_evolution,

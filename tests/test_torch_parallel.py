@@ -17,8 +17,12 @@ tests/test_multistart.py's shapes and tolerances:
   rollout_final;
 * scaling_bench at world 2 gives rows [1, 2]; the four dry-run paths run;
 * mesh shapes as the JAX make_mesh; argmin as jnp.argmin (ties, NaN);
-  init_distributed raises when the backend cannot start.
+  init_distributed raises when the backend cannot start; run_world kills
+  a world that outlives its deadline.
 """
+
+import multiprocessing
+import time
 
 import numpy as np
 import jax.numpy as jnp
@@ -37,11 +41,10 @@ from optimalcontrolmps_tpu import vidal as jvidal
 from optimalcontrolmps_tpu.parallel import make_mesh as jmake_mesh
 from optimalcontrolmps_tpu.parallel import multistart_lbfgs as jmultistart
 from optimalcontrolmps_torch import engine, mps, vidal
-from optimalcontrolmps_torch.parallel import comm, mesh
+from optimalcontrolmps_torch.parallel import comm, mesh, spawn
 from optimalcontrolmps_torch.parallel.multistart import multistart_lbfgs
 from optimalcontrolmps_torch.parallel.spawn import run_world
 
-torch.set_num_threads(2)
 WORLD = 2
 
 
@@ -109,6 +112,19 @@ def test_make_mesh_in_the_world(ranks):
     for r in ranks:
         assert tuple(r["mesh_batch"]) == (2, 1)
         assert tuple(r["mesh_rows"]) == (1, 2)
+
+
+def test_run_world_kills_a_world_past_its_deadline(monkeypatch):
+    """Ranks that sleep past TIMEOUT: RuntimeError names them within a
+    few seconds of the deadline, and no rank process is left alive."""
+    monkeypatch.setattr(spawn, "TIMEOUT", 3.0)
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError,
+                       match=r"rank\(s\) \[0, 1\] did not report"):
+        run_world(W.sleep_past_deadline, WORLD, "gloo", "cpu",
+                  args=(300.0,), threads=1)
+    assert time.monotonic() - t0 < 3.0 + 10.0
+    assert multiprocessing.active_children() == []
 
 
 def test_init_distributed_raises_when_the_backend_cannot_start():

@@ -26,7 +26,6 @@ from optimalcontrolmps_torch import seeds, sites
 from optimalcontrolmps_torch.ops import gates
 from optimalcontrolmps_torch.optimize import penalty
 
-torch.set_num_threads(2)
 
 T, DT, M, L, D, NPART, GAMMA = 0.5, 0.01, 8, 5, 4, 5, 1e-6
 N = int(round(T / DT)) + 1

@@ -27,7 +27,6 @@ from optimalcontrolmps_torch import sector
 from optimalcontrolmps_torch.engine import regularization
 from optimalcontrolmps_torch.ops import sector_chain as sc
 
-torch.set_num_threads(2)
 
 T, DT, L, D, NPART, GAMMA = 0.5, 0.01, 5, 4, 5, 1e-6
 N = int(round(T / DT)) + 1

@@ -32,8 +32,6 @@ from optimalcontrolmps_tpu import vidal as jvidal
 from optimalcontrolmps_torch import (engine, groundstate, seeds, streaming,
                                      tebd, vidal)
 
-torch.set_num_threads(2)
-
 
 def test_pick_segment_and_row_block_match_jax():
     for n in (1, 7, 30, 50, 200, 1000):
@@ -48,7 +46,15 @@ def test_pick_segment_and_row_block_match_jax():
 
 
 @pytest.fixture(scope="module")
-def grad_problem():
+def jax_states():
+    """JAX's boundary states of the L=4, d=3, chi=16 problem (U = 2.5,
+    50), for the MPS and the Vidal engine's references."""
+    return tuple(jgs.initialize_state(4, 3, 4, 1.0, U, 16)
+                 for U in (2.5, 50.0))
+
+
+@pytest.fixture(scope="module")
+def grad_problem(jax_states):
     L, D, NPART, J, DT, N, CHI = 4, 3, 4, 1.0, 0.01, 31, 16
     u = seeds.linspace(2.5, 50.0, N)
     st = tebd.make_stepper(L, D, J, DT, CHI, device="cpu")
@@ -58,9 +64,7 @@ def grad_problem():
                                          device="cpu")
     jst = jtebd.make_stepper(L, D, J, DT, CHI)
     jg, jaux = jax.jit(lambda uu: jengine.gradient(
-        jst, jgs.initialize_state(L, D, NPART, J, 2.5, CHI),
-        jgs.initialize_state(L, D, NPART, J, 50.0, CHI), uu, 1e-6))(
-            jnp.asarray(u))
+        jst, *jax_states, uu, 1e-6))(jnp.asarray(u))
     return (st, psi_i, psi_f, torch.as_tensor(u)), (
         np.asarray(jg), np.asarray(jaux[2]), complex(jaux[3]))
 
@@ -134,7 +138,7 @@ def test_block_hessian_refuses_a_row_block_that_does_not_divide():
 # ---------------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
-def vidal_problem():
+def vidal_problem(jax_states):
     L, D, NPART, J, DT, N, CHI = 4, 3, 4, 1.0, 0.01, 31, 16
     u = seeds.linspace(2.5, 50.0, N)
     st = tebd.make_stepper(L, D, J, DT, CHI, sweep="vidal", device="cpu")
@@ -142,8 +146,7 @@ def vidal_problem():
         L, D, NPART, J, U, CHI, device="cpu"), device="cpu")
         for U in (2.5, 50.0))
     jst = jtebd.make_stepper(L, D, J, DT, CHI, sweep="vidal")
-    jpi, jpf = (jvidal.from_mps(jgs.initialize_state(L, D, NPART, J, U, CHI))
-                for U in (2.5, 50.0))
+    jpi, jpf = (jvidal.from_mps(psi) for psi in jax_states)
 
     @jax.jit
     def jall(uu):

@@ -17,7 +17,6 @@ from optimalcontrolmps_tpu import groundstate as jgs
 from optimalcontrolmps_torch import exact, groundstate, mps, tebd
 from optimalcontrolmps_torch.sites import op
 
-torch.set_num_threads(2)
 
 D, J, DT = 3, 1.0, 0.01
 STEPS = 6

@@ -34,7 +34,6 @@ from optimalcontrolmps_tpu import vidal as jvidal
 from optimalcontrolmps_torch import (backends, engine, exact, groundstate,
                                      mps, seeds, tebd, vidal)
 
-torch.set_num_threads(2)
 
 L, D, NPART, J, DT, CHI = 5, 4, 5, 1.0, 0.01, 30
 # the engine comparisons: the exact rank bound of L=4, d=3 is chi=16
@@ -71,14 +70,21 @@ def setup():
             vidal.from_mps(A, device="cpu"), A)
 
 
-def test_from_mps_roundtrip_matches_jax(setup):
+@pytest.fixture(scope="module")
+def jax_setup(setup):
+    """JAX's Vidal stepper and JAX's from_mps of setup's MPS."""
+    return (jtebd.make_stepper(L, D, J, DT, CHI, sweep="vidal"),
+            jvidal.from_mps(setup[4]))
+
+
+def test_from_mps_roundtrip_matches_jax(setup, jax_setup):
     _, _, vec, state, A = setup
     np.testing.assert_allclose(_sv(state), vec, atol=1e-10)
     for b in range(L - 1):
         np.testing.assert_allclose(vidal.schmidt_values(state)[b],
                                    _exact_schmidt(vec, D + 1, b, CHI),
                                    atol=1e-10)
-    js = jvidal.from_mps(A)
+    js = jax_setup[1]
     np.testing.assert_allclose(state.lam.numpy(), np.asarray(js.lam),
                                atol=1e-10)
     np.testing.assert_allclose(_sv(state),
@@ -96,11 +102,11 @@ JAX_STEPS = 5
 
 
 @pytest.mark.parametrize("forward", [True, False])
-def test_vidal_step_matches_statevector_and_jax(setup, forward):
+def test_vidal_step_matches_statevector_and_jax(setup, jax_setup, forward):
     """20 forward steps 2 -> 50 or 10 backward steps 50 -> 2 against the
     dense propagator, Schmidt spectra after them; the state after the
     first JAX_STEPS steps against JAX's vidal_step."""
-    st, est, vec, state, A = setup
+    st, est, vec, state, _ = setup
     u = np.linspace(2.0, 50.0, 21) if forward else np.linspace(50.0, 2.0,
                                                                  11)
     s = vidal.VidalState(state.B[None], state.lam[None])
@@ -119,13 +125,13 @@ def test_vidal_step_matches_statevector_and_jax(setup, forward):
         np.testing.assert_allclose(vidal.schmidt_values(s)[b],
                                    _exact_schmidt(pv, D + 1, b, CHI),
                                    atol=1e-6)
-    jst = jtebd.make_stepper(L, D, J, DT, CHI, sweep="vidal")
+    jst, js0 = jax_setup
 
     def jroll(js, uu):
         pairs = jnp.stack([uu[:-1], uu[1:]], axis=1)
         return jax.lax.scan(lambda x, pr: (jvidal.vidal_step(
             jst, x, pr[0], pr[1], forward), None), js, pairs)[0]
-    js = jax.jit(jroll)(jvidal.from_mps(A), jnp.asarray(u[:JAX_STEPS + 1]))
+    js = jax.jit(jroll)(js0, jnp.asarray(u[:JAX_STEPS + 1]))
     _same_up_to_phase(_sv(s_prefix), np.asarray(jmps.to_statevector(js.B)),
                       1e-9)
     np.testing.assert_allclose(vidal.schmidt_values(s_prefix),

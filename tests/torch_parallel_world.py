@@ -9,6 +9,8 @@ tests/test_multistart.py (L=5, d=4, Npart=5, T=0.5, M=8); the Vidal chain
 of test_parallel.py's tensor-parallel test (L=6, d=3, chi=12).
 """
 
+import time
+
 import numpy as np
 import torch
 
@@ -133,3 +135,8 @@ def rank_work(rank, world):
     out["scaling"] = scaling_bench.run(per_device_batch=4, steps=1)
     out["dryrun"] = dryrun.dryrun_multidevice(m_batch)
     return out
+
+
+def sleep_past_deadline(rank, world, seconds):
+    """A rank that hangs: run_world's deadline has to stop it."""
+    time.sleep(seconds)

@@ -80,7 +80,9 @@ def multistart_coeffs(B: int, M: int = M, seed: int = 7) -> np.ndarray:
 
 def batch_objective(prob: Problem):
     """fg(C (B, M)) -> (J (B,), dJ/dC (B, M)) through the fused chain
-    (bench.py:186-198)."""
+    (bench.py:186-198). It syncs nothing with the host and its shapes do not
+    depend on values, so it declares itself `capture_safe`: on the card
+    `minimize_lbfgs_batch` replays its trials as CUDA graphs."""
     st, basis, gamma = prob.st, prob.basis, prob.gamma
     psi_f_conj = prob.psi_f.conj()
     consts = chain_constants(st, prob.psi_i)
@@ -97,6 +99,7 @@ def batch_objective(prob: Problem):
             (G,) = torch.autograd.grad(J.sum(), C)
         return J.detach(), G
 
+    fg.capture_safe = True
     return fg
 
 

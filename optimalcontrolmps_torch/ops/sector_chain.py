@@ -14,7 +14,7 @@ h_{i-1} from h_i while the cotangent propagates, and stores no trajectory.
   and the kernels' check use them.
 * `_launch_fwd` / `_launch_bwd` run the hand-written Hopper kernels of
   `csrc/sector_chain.cu` and count their launches (`fwd_launches`,
-  `bwd_launches`).
+  `bwd_launches`; a CUDA graph's replays through `count_launches`).
 * `_Chain` is the autograd.Function; `chain_final` is the public entry.
 
 Dispatch looks at the tensor's device only: a CUDA tensor launches the
@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["chain_final", "chain_final_scan", "scan_bwd", "chain_constants",
-           "reset_counts", "fwd_launches", "bwd_launches"]
+           "reset_counts", "count_launches", "fwd_launches", "bwd_launches"]
 
 N_KERNEL = 128  # the kernels' fixed sector width (ns_p)
 
@@ -38,6 +38,14 @@ def reset_counts() -> None:
     global fwd_launches, bwd_launches
     fwd_launches = 0
     bwd_launches = 0
+
+
+def count_launches(fwd: int, bwd: int) -> None:
+    """Add kernel runs that no wrapper call counted: a replayed CUDA
+    graph's (negative: a capture's, which runs nothing)."""
+    global fwd_launches, bwd_launches
+    fwd_launches += fwd
+    bwd_launches += bwd
 
 
 # ---------------------------------------------------------------------------

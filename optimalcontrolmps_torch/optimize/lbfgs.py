@@ -8,11 +8,22 @@ state machines and two-loop recursions; the `while_loop`s are Python loops.
 * `minimize_lbfgs_batch` solves B problems in lockstep: the objective sees
   the whole (B, n) batch once per line-search trial, and finished lanes are
   frozen by masks. This is what lets one fused chain-kernel launch serve
-  the whole multistart batch.
+  the whole multistart batch. Its two bodies, a trial and the rest of an
+  iteration, each end in one read of the loop's flags. On the card, for an
+  objective that declares itself capture-safe (`capture_safe = True` on
+  the function: no host sync, no shape or branch that depends on values),
+  each body runs eagerly once and is then replayed as a CUDA graph.
 
 History is a rolling (m, n) buffer; a failed Wolfe search accepts the best
 improving trial (if any), drops the history, and the solve stops only after
 `max_fails` consecutive searches without improvement.
+
+Counters of the lockstep solver, reset by `reset_counts`: `trials_eager`
+(objective calls run eagerly: a solve's start, then its warm-up trial when
+graphed, else every trial), `trials_replayed` (trials replayed from a
+graph) and `graphs_captured`. The two trial counts add up to the
+objective's evaluations, which `ops.sector_chain.fwd_launches` also counts
+for the flagship objective.
 """
 
 from __future__ import annotations
@@ -21,7 +32,22 @@ from typing import Callable, NamedTuple
 
 import torch
 
-__all__ = ["LBFGSResult", "minimize_lbfgs", "minimize_lbfgs_batch"]
+from ..ops import sector_chain
+
+__all__ = ["LBFGSResult", "minimize_lbfgs", "minimize_lbfgs_batch",
+           "reset_counts", "trials_eager", "trials_replayed",
+           "graphs_captured"]
+
+trials_eager = 0
+trials_replayed = 0
+graphs_captured = 0
+
+
+def reset_counts() -> None:
+    global trials_eager, trials_replayed, graphs_captured
+    trials_eager = 0
+    trials_replayed = 0
+    graphs_captured = 0
 
 
 class LBFGSResult(NamedTuple):
@@ -237,86 +263,234 @@ def _two_loop_batch(g, S, Y, rho, head, count, m):
     return r
 
 
-def _wolfe_search_batch(fg, x, f0, g0, p, max_ls: int, c1=1e-4, c2=0.9,
-                        a0=None, active0=None):
-    """Batched strong-Wolfe search. x/p: (B, n); f0: (B,). Lanes with
-    active0=False are frozen (their objective values are ignored). Same
-    state machine as `_wolfe_search`, with per-lane phase flags."""
-    B = x.shape[0]
-    dev = x.device
-    d0 = _bdot(g0, p)
-    zero = torch.zeros(B, dtype=f0.dtype, device=dev)
-    false = torch.zeros(B, dtype=torch.bool, device=dev)
-    true = torch.ones(B, dtype=torch.bool, device=dev)
-    one_i = torch.ones(B, dtype=torch.int32, device=dev)
-    s = {
-        "phase": torch.zeros(B, dtype=torch.int32, device=dev),
-        "a_lo": zero, "f_lo": f0, "a_hi": zero + 1e10,
-        "a": torch.ones_like(zero) if a0 is None else a0.to(f0.dtype),
-        "k": torch.zeros(B, dtype=torch.int32, device=dev),
+def _search_start(state, live, a0) -> dict:
+    """The Wolfe search's state before its first trial, at step a0; lanes
+    that are not `live` stay frozen through the search."""
+    f0, g0 = state["f"], state["g"]
+    zero = torch.zeros_like(f0)
+    false = torch.zeros_like(live)
+    return {
+        "phase": torch.zeros_like(state["it"]),
+        "a_lo": zero, "f_lo": f0, "a_hi": zero + 1e10, "a": a0,
+        "k": torch.zeros_like(state["it"]),
         "done": false, "ok": false, "xf": f0, "xg": g0, "alpha": zero,
-        "bf": f0, "bg": g0, "ba": zero,
-        "act": true if active0 is None else active0,
+        "bf": f0, "bg": g0, "ba": zero, "act": live,
     }
-    while bool(torch.any((~s["done"]) & (s["k"] < max_ls) & s["act"])):
-        a = s["a"]
-        f, g = fg(x + a[:, None] * p)
-        d = _bdot(g, p)
-        live = (~s["done"]) & s["act"]
-        s = {**s, "k": torch.where(live, s["k"] + 1, s["k"])}
-
-        better = live & (f < s["bf"])
-        s = {**s,
-             "bf": torch.where(better, f, s["bf"]),
-             "bg": torch.where(better[:, None], g, s["bg"]),
-             "ba": torch.where(better, a, s["ba"])}
-
-        curv_ok = torch.abs(d) <= -c2 * d0
-        armijo_fail = f > f0 + c1 * a * d0
-
-        # bracketing phase
-        failb = armijo_fail | ((f >= s["f_lo"]) & (s["k"] > 1))
-        b1 = {**s, "phase": one_i, "a_hi": a}
-        b2 = {**s, "done": true, "ok": true, "xf": f, "xg": g, "alpha": a}
-        b3 = {**s, "phase": one_i, "a_hi": s["a_lo"], "a_lo": a, "f_lo": f}
-        b4 = {**s, "a_lo": a, "f_lo": f, "a": 2.0 * a}
-        sb = _merge(failb, b1, _merge(curv_ok, b2, _merge(d >= 0, b3, b4)))
-
-        # zoom phase
-        failz = armijo_fail | (f >= s["f_lo"])
-        z1 = {**s, "a_hi": a}
-        flip = d * (s["a_hi"] - s["a_lo"]) >= 0
-        z3a = {**s, "a_hi": s["a_lo"], "a_lo": a, "f_lo": f}
-        z3b = {**s, "a_lo": a, "f_lo": f}
-        sz = _merge(failz, z1, _merge(curv_ok, b2, _merge(flip, z3a, z3b)))
-
-        s_new = _merge(s["phase"] == 1, sz, sb)
-        a_next = torch.where(s_new["phase"] == 1,
-                             0.5 * (s_new["a_lo"] + s_new["a_hi"]),
-                             s_new["a"])
-        s_new = {**s_new,
-                 "a": torch.where(s_new["done"], s_new["a"], a_next)}
-        # frozen lanes keep their old state entirely
-        s = _merge(live, s_new, s)
-    return (s["alpha"], s["xf"], s["xg"], s["k"], s["ok"], s["ba"], s["bf"],
-            s["bg"])
 
 
-def minimize_lbfgs_batch(fun_and_grad: Callable, X0, max_iter: int = 100,
-                         tol: float = 1e-8, history: int = 10,
-                         max_ls: int = 20, max_fails: int = 3
-                         ) -> LBFGSResult:
-    """Lockstep batch L-BFGS: fun_and_grad(X (B, n)) -> (f (B,), G (B, n)),
-    called once per line-search trial for the whole batch. Same semantics
-    lane by lane as the JAX package's batch solver. Returns (B,) tensors."""
+def _searching(s, max_ls: int):
+    """(B,) lanes whose search takes another trial."""
+    return (~s["done"]) & (s["k"] < max_ls) & s["act"]
+
+
+def _trial(fg, state, d, s, c1=1e-4, c2=0.9) -> dict:
+    """One lockstep trial of the batched strong-Wolfe search from
+    state["x"] along d["p"]: the objective at x + a p, then the search's
+    next state. Same state machine as `_wolfe_search`, with per-lane phase
+    flags; frozen lanes keep their state whatever the objective says."""
+    x, f0, p, d0 = state["x"], state["f"], d["p"], d["d0"]
+    one_i = torch.ones_like(s["k"])
+    true = torch.ones_like(s["done"])
+    a = s["a"]
+    f, g = fg(x + a[:, None] * p)
+    dg = _bdot(g, p)
+    live = (~s["done"]) & s["act"]
+    s = {**s, "k": torch.where(live, s["k"] + 1, s["k"])}
+
+    better = live & (f < s["bf"])
+    s = {**s,
+         "bf": torch.where(better, f, s["bf"]),
+         "bg": torch.where(better[:, None], g, s["bg"]),
+         "ba": torch.where(better, a, s["ba"])}
+
+    curv_ok = torch.abs(dg) <= -c2 * d0
+    armijo_fail = f > f0 + c1 * a * d0
+
+    # bracketing phase
+    failb = armijo_fail | ((f >= s["f_lo"]) & (s["k"] > 1))
+    b1 = {**s, "phase": one_i, "a_hi": a}
+    b2 = {**s, "done": true, "ok": true, "xf": f, "xg": g, "alpha": a}
+    b3 = {**s, "phase": one_i, "a_hi": s["a_lo"], "a_lo": a, "f_lo": f}
+    b4 = {**s, "a_lo": a, "f_lo": f, "a": 2.0 * a}
+    sb = _merge(failb, b1, _merge(curv_ok, b2, _merge(dg >= 0, b3, b4)))
+
+    # zoom phase
+    failz = armijo_fail | (f >= s["f_lo"])
+    z1 = {**s, "a_hi": a}
+    flip = dg * (s["a_hi"] - s["a_lo"]) >= 0
+    z3a = {**s, "a_hi": s["a_lo"], "a_lo": a, "f_lo": f}
+    z3b = {**s, "a_lo": a, "f_lo": f}
+    sz = _merge(failz, z1, _merge(curv_ok, b2, _merge(flip, z3a, z3b)))
+
+    s_new = _merge(s["phase"] == 1, sz, sb)
+    a_next = torch.where(s_new["phase"] == 1,
+                         0.5 * (s_new["a_lo"] + s_new["a_hi"]), s_new["a"])
+    s_new = {**s_new, "a": torch.where(s_new["done"], s_new["a"], a_next)}
+    # frozen lanes keep their old state entirely
+    return _merge(live, s_new, s)
+
+
+def _begin(state, m: int, max_iter: int):
+    """An iteration's start: its live lanes, the two-loop direction (the
+    gradient's where that is no descent), the first step, and the search's
+    state. Returns (d, s): d holds p, d0 = g.p and live."""
+    g = state["g"]
+    live = (~state["done"]) & (state["it"] < max_iter)
+    p = -_two_loop_batch(g, state["S"], state["Y"], state["rho"],
+                         state["head"], state["count"], m)
+    descent = _bdot(p, g) < 0
+    p = torch.where(descent[:, None], p, -g)
+
+    gnorm0 = torch.max(torch.abs(g), dim=-1).values
+    a0 = torch.where(state["count"] > 0, torch.ones_like(gnorm0),
+                     torch.clamp(1.0 / torch.clamp(gnorm0, min=1e-12),
+                                 max=1.0)).to(g.dtype)
+    d = {"p": p, "d0": _bdot(g, p), "live": live}
+    return d, _search_start(state, live, a0)
+
+
+def _finish(state, d, s, m: int, tol: float, max_fails: int) -> dict:
+    """An iteration's end after its search: the accepted point, the history
+    pair, the restart and stall bookkeeping, convergence."""
+    live, p = d["live"], d["p"]
+    ok, bf = s["ok"], s["bf"]
+    improved = bf < state["f"]
+    accept = live & (ok | improved)
+    a_use = torch.where(ok, s["alpha"], s["ba"])
+    f_new = torch.where(ok, s["xf"], bf)
+    g_new = torch.where(ok[:, None], s["xg"], s["bg"])
+    x_new = state["x"] + a_use[:, None] * p
+
+    sk = x_new - state["x"]
+    yk = g_new - state["g"]
+    sy = _bdot(sk, yk)
+    good_pair = live & ok & (
+        sy > 1e-12 * torch.linalg.vector_norm(sk, dim=-1)
+        * torch.linalg.vector_norm(yk, dim=-1))
+
+    head = state["head"]
+    slots = torch.arange(m, device=head.device)[None, :]
+    slot = (slots == head[:, None]) & good_pair[:, None]
+    S = torch.where(slot[..., None], sk[:, None, :], state["S"])
+    Y = torch.where(slot[..., None], yk[:, None, :], state["Y"])
+    rho = torch.where(
+        slot, (1.0 / torch.where(sy != 0, sy, torch.ones_like(sy)))[:, None],
+        state["rho"])
+    head = torch.where(good_pair, torch.remainder(head + 1, m), head)
+    count = torch.where(good_pair, torch.clamp(state["count"] + 1, max=m),
+                        state["count"])
+    count = torch.where(live & ~ok, torch.zeros_like(count), count)
+
+    fails = torch.where(accept, torch.zeros_like(state["fails"]),
+                        torch.where(live, state["fails"] + 1, state["fails"]))
+
+    g_eff = torch.where(accept[:, None], g_new, state["g"])
+    gnorm = torch.max(torch.abs(g_eff), dim=-1).values
+    converged = live & (gnorm < tol)
+    stalled = live & (fails >= max_fails)
+    return {
+        "x": torch.where(accept[:, None], x_new, state["x"]),
+        "f": torch.where(accept, f_new, state["f"]),
+        "g": g_eff,
+        "S": S, "Y": Y, "rho": rho, "head": head, "count": count,
+        "it": torch.where(live, state["it"] + 1, state["it"]),
+        "evals": torch.where(live, state["evals"] + s["k"], state["evals"]),
+        "fails": fails,
+        "done": state["done"] | converged | stalled,
+        "converged": state["converged"] | converged,
+    }
+
+
+def _more(state, max_iter: int):
+    """Whether any lane takes another iteration (a 0-dim tensor)."""
+    return torch.any((~state["done"]) & (state["it"] < max_iter))
+
+
+def _store(dst: dict, new: dict) -> None:
+    """Copy `new` into the buffers of `dst` in place. No entry of `new` is
+    another key's buffer of `dst`: the bodies select between branches, and
+    a branch that keeps an entry keeps it under its own key."""
+    for k, t in new.items():
+        if t is not dst[k]:
+            dst[k].copy_(t)
+
+
+class _Step:
+    """One body of the lockstep solver (a line-search trial, or the rest of
+    an iteration), run until the solver returns. `body()` computes the next
+    state from the solver's state dicts, stores it in their buffers in
+    place (`_store`) and returns the loop's flags as a (k,) bool tensor; a
+    call returns them as a list, with one read from the device.
+
+    Eager, every call runs the body. Graphed, the buffers are static: the
+    first call runs the body eagerly (the warm-up), the second captures it
+    as a CUDA graph and replays it, later calls replay it. What the body
+    looks up (the two-loop recursion, the kernels) is looked up at the
+    capture. The capture runs no kernel, so it counts no sector-chain
+    launch; each replay counts the ones it runs."""
+
+    def __init__(self, body, graphed: bool, trial: bool):
+        self.body, self.graphed, self.trial = body, graphed, trial
+        self.warm = False
+        self.graph = self.flags = None
+        self.launches = (0, 0)
+
+    def __call__(self) -> list:
+        global trials_eager, trials_replayed
+        if not self.warm:
+            self.warm = self.graphed
+            flags = self.body()
+            trials_eager += self.trial
+            return flags.tolist()
+        if self.graph is None:
+            self._capture()
+        self.graph.replay()
+        sector_chain.count_launches(*self.launches)
+        trials_replayed += self.trial
+        return self.flags.tolist()
+
+    def _capture(self) -> None:
+        global graphs_captured
+        n0 = (sector_chain.fwd_launches, sector_chain.bwd_launches)
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin()
+        try:
+            self.flags = self.body()
+        finally:
+            graph.capture_end()
+        self.graph = graph
+        self.launches = (sector_chain.fwd_launches - n0[0],
+                         sector_chain.bwd_launches - n0[1])
+        sector_chain.count_launches(-self.launches[0], -self.launches[1])
+        graphs_captured += 1
+
+    def release(self) -> None:
+        """Free the graph and its memory pool."""
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = self.flags = None
+
+
+_streams: dict = {}
+
+
+def _stream(device) -> torch.cuda.Stream:
+    """The stream that graphed solves run on, one per device and kept
+    across calls: cuBLAS keeps a workspace for each stream it has run on."""
+    if device not in _streams:
+        _streams[device] = torch.cuda.Stream(device)
+    return _streams[device]
+
+
+def _solve(fg, X0, max_iter, tol, m, max_ls, max_fails, graphed):
+    global trials_eager
     B, n = X0.shape
-    m = history
-    dev = X0.device
-    dtype = X0.dtype
+    dev, dtype = X0.device, X0.dtype
     i32 = dict(dtype=torch.int32, device=dev)
 
-    f0, g0 = fun_and_grad(X0)
-    s = {
+    f0, g0 = fg(X0)
+    trials_eager += 1
+    state = {
         "x": X0, "f": f0, "g": g0,
         "S": torch.zeros((B, m, n), dtype=dtype, device=dev),
         "Y": torch.zeros((B, m, n), dtype=dtype, device=dev),
@@ -327,71 +501,64 @@ def minimize_lbfgs_batch(fun_and_grad: Callable, X0, max_iter: int = 100,
         "done": torch.zeros(B, dtype=torch.bool, device=dev),
         "converged": torch.zeros(B, dtype=torch.bool, device=dev),
     }
-    slots = torch.arange(m, device=dev)[None, :]
+    d, s = _begin(state, m, max_iter)
+    # every entry a buffer of its own, which the steps update in place; X0
+    # is left as it is
+    state, d, s = ({k: t.clone() for k, t in z.items()} for z in (state, d, s))
 
-    while bool(torch.any((~s["done"]) & (s["it"] < max_iter))):
-        live = (~s["done"]) & (s["it"] < max_iter)
-        p = -_two_loop_batch(s["g"], s["S"], s["Y"], s["rho"], s["head"],
-                             s["count"], m)
-        descent = _bdot(p, s["g"]) < 0
-        p = torch.where(descent[:, None], p, -s["g"])
+    def trial():
+        _store(s, _trial(fg, state, d, s))
+        return torch.any(_searching(s, max_ls)).reshape(1)
 
-        gnorm0 = torch.max(torch.abs(s["g"]), dim=-1).values
-        a0 = torch.where(s["count"] > 0, torch.ones_like(gnorm0),
-                         torch.clamp(1.0 / torch.clamp(gnorm0, min=1e-12),
-                                     max=1.0)).to(dtype)
+    def iteration():
+        _store(state, _finish(state, d, s, m, tol, max_fails))
+        d_next, s_next = _begin(state, m, max_iter)
+        _store(d, d_next)
+        _store(s, s_next)
+        return torch.stack([_more(state, max_iter),
+                            torch.any(_searching(s, max_ls))])
 
-        alpha, f_w, g_w, k, ok, ba, bf, bg = _wolfe_search_batch(
-            fun_and_grad, s["x"], s["f"], s["g"], p, max_ls, a0=a0,
-            active0=live)
+    steps = (_Step(trial, graphed, True), _Step(iteration, graphed, False))
+    run_trial, run_iteration = steps
+    more, searching = torch.stack(
+        [_more(state, max_iter), torch.any(_searching(s, max_ls))]).tolist()
+    try:
+        while more:
+            while searching:
+                (searching,) = run_trial()
+            more, searching = run_iteration()
+    finally:
+        for step in steps:
+            step.release()
+    return LBFGSResult(x=state["x"], f=state["f"],
+                       grad_norm=torch.max(torch.abs(state["g"]),
+                                           dim=-1).values,
+                       iterations=state["it"], converged=state["converged"],
+                       n_evals=state["evals"])
 
-        improved = bf < s["f"]
-        accept = live & (ok | improved)
-        a_use = torch.where(ok, alpha, ba)
-        f_new = torch.where(ok, f_w, bf)
-        g_new = torch.where(ok[:, None], g_w, bg)
-        x_new = s["x"] + a_use[:, None] * p
 
-        sk = x_new - s["x"]
-        yk = g_new - s["g"]
-        sy = _bdot(sk, yk)
-        good_pair = live & ok & (
-            sy > 1e-12 * torch.linalg.vector_norm(sk, dim=-1)
-            * torch.linalg.vector_norm(yk, dim=-1))
+def minimize_lbfgs_batch(fun_and_grad: Callable, X0, max_iter: int = 100,
+                         tol: float = 1e-8, history: int = 10,
+                         max_ls: int = 20, max_fails: int = 3
+                         ) -> LBFGSResult:
+    """Lockstep batch L-BFGS: fun_and_grad(X (B, n)) -> (f (B,), G (B, n)),
+    called once per line-search trial for the whole batch. Same semantics
+    lane by lane as the JAX package's batch solver. Returns (B,) tensors.
 
-        head = s["head"]
-        slot = (slots == head[:, None]) & good_pair[:, None]
-        S = torch.where(slot[..., None], sk[:, None, :], s["S"])
-        Y = torch.where(slot[..., None], yk[:, None, :], s["Y"])
-        rho = torch.where(
-            slot, (1.0 / torch.where(sy != 0, sy, torch.ones_like(sy)))[:, None],
-            s["rho"])
-        head = torch.where(good_pair, torch.remainder(head + 1, m), head)
-        count = torch.where(good_pair, torch.clamp(s["count"] + 1, max=m),
-                            s["count"])
-        count = torch.where(live & ~ok, torch.zeros_like(count), count)
-
-        fails = torch.where(accept, torch.zeros_like(s["fails"]),
-                            torch.where(live, s["fails"] + 1, s["fails"]))
-
-        g_eff = torch.where(accept[:, None], g_new, s["g"])
-        gnorm = torch.max(torch.abs(g_eff), dim=-1).values
-        converged = live & (gnorm < tol)
-        stalled = live & (fails >= max_fails)
-
-        s = {
-            "x": torch.where(accept[:, None], x_new, s["x"]),
-            "f": torch.where(accept, f_new, s["f"]),
-            "g": g_eff,
-            "S": S, "Y": Y, "rho": rho, "head": head, "count": count,
-            "it": torch.where(live, s["it"] + 1, s["it"]),
-            "evals": torch.where(live, s["evals"] + k, s["evals"]),
-            "fails": fails,
-            "done": s["done"] | converged | stalled,
-            "converged": s["converged"] | converged,
-        }
-
-    return LBFGSResult(x=s["x"], f=s["f"],
-                       grad_norm=torch.max(torch.abs(s["g"]), dim=-1).values,
-                       iterations=s["it"], converged=s["converged"],
-                       n_evals=s["evals"])
+    With X0 on the card and `fun_and_grad.capture_safe` true, the trials
+    and iterations after the first are CUDA-graph replays (`_Step`), on a
+    side stream; otherwise every step runs eagerly."""
+    graphed = X0.is_cuda and bool(getattr(fun_and_grad, "capture_safe",
+                                          False))
+    args = (fun_and_grad, X0, max_iter, tol, history, max_ls, max_fails)
+    if not graphed:
+        return _solve(*args, graphed=False)
+    caller = torch.cuda.current_stream(X0.device)
+    side = _stream(X0.device)
+    side.wait_stream(caller)
+    with torch.cuda.stream(side):
+        res = _solve(*args, graphed=True)
+    caller.wait_stream(side)
+    for t in res:
+        t.record_stream(caller)
+    return res

@@ -15,6 +15,7 @@ import torch
 from optimalcontrolmps_tpu.optimize import lbfgs as jlbfgs
 from optimalcontrolmps_tpu.optimize import newton as jnewton
 from optimalcontrolmps_torch import control, sector, seeds
+from optimalcontrolmps_torch.optimize import lbfgs
 from optimalcontrolmps_torch.optimize import (minimize_lbfgs,
                                               minimize_lbfgs_batch,
                                               minimize_newton)
@@ -172,3 +173,122 @@ def test_batched_lbfgs_matches_single_on_sector_objective():
                                rtol=2e-4, atol=2e-6)
     J0, _ = fg_batch(cs)
     assert float(torch.max(r_b.f - J0)) < 0
+
+
+# ---------------------------------------------------------------------------
+# the lockstep solver's steps: eager on the CPU, graphed bodies emulated
+# ---------------------------------------------------------------------------
+
+def _batch_fg(problems, calls=None):
+    A, b, rosen, x0 = problems
+    lanes_t = _lanes(torch, A, b, rosen)
+
+    def fg_t(X):
+        if calls is not None:
+            calls.append(1)
+        with torch.enable_grad():
+            X = X.detach().requires_grad_(True)
+            f = torch.stack([lanes_t[k](X[k]) for k in range(LANES)])
+            (g,) = torch.autograd.grad(f.sum(), X)
+        return f.detach(), g
+    return fg_t
+
+
+def _same(a, b):
+    for name in a._fields:
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+
+def test_lbfgs_batch_capture_safe_runs_eagerly_on_cpu(problems):
+    """A capture-safe objective on the CPU takes the eager steps: the same
+    result as an undeclared one, nothing replayed or captured, and every
+    objective call counted as an eager trial."""
+    x0 = torch.as_tensor(problems[3])
+    calls = []
+    fg_safe = _batch_fg(problems, calls)
+    fg_safe.capture_safe = True
+    lbfgs.reset_counts()
+    r_safe = minimize_lbfgs_batch(fg_safe, x0, max_iter=100, tol=1e-8)
+    counts = (lbfgs.trials_eager, lbfgs.trials_replayed,
+              lbfgs.graphs_captured)
+    assert counts == (len(calls), 0, 0)
+    assert len(calls) > 10
+    r_plain = minimize_lbfgs_batch(_batch_fg(problems), x0, max_iter=100,
+                                   tol=1e-8)
+    _same(r_safe, r_plain)
+
+
+def test_lbfgs_batch_ragged_searches_match_jax(problems, monkeypatch):
+    """Lockstep searches that end at different trials, some at max_ls (3
+    here), against the JAX package's batch solver; the searches' trial
+    counts per lane are read where each iteration ends."""
+    A, b, rosen, x0 = problems
+    lanes_j = _lanes(jnp, A, b, rosen)
+
+    def f_j(X):
+        return jnp.stack([lanes_j[k](X[k]) for k in range(LANES)])
+
+    def fg_j(X):
+        return f_j(X), jax.grad(lambda X: jnp.sum(f_j(X)))(X)
+
+    ks = []
+    finish = lbfgs._finish
+
+    def spy(state, d, s, *a):
+        ks.append(s["k"][d["live"]])
+        return finish(state, d, s, *a)
+
+    monkeypatch.setattr(lbfgs, "_finish", spy)
+    rj = jax.jit(lambda X: jlbfgs.minimize_lbfgs_batch(
+        fg_j, X, max_iter=60, tol=1e-8, max_ls=3))(jnp.asarray(x0))
+    rt = minimize_lbfgs_batch(_batch_fg(problems), torch.as_tensor(x0),
+                              max_iter=60, tol=1e-8, max_ls=3)
+    assert any(len(set(k.tolist())) > 1 for k in ks)
+    assert any(bool((k == 3).any()) for k in ks)
+    np.testing.assert_array_equal(rt.iterations.numpy(),
+                                  np.asarray(rj.iterations))
+    np.testing.assert_array_equal(rt.n_evals.numpy(), np.asarray(rj.n_evals))
+    np.testing.assert_array_equal(rt.converged.numpy(),
+                                  np.asarray(rj.converged))
+    np.testing.assert_allclose(rt.x.numpy(), np.asarray(rj.x), atol=1e-10)
+    np.testing.assert_allclose(rt.f.numpy(), np.asarray(rj.f), atol=1e-10)
+
+
+class _EmulatedGraph:
+    """A capture that runs nothing and a replay that runs the body again
+    on the static buffers: a CUDA graph's semantics, on the CPU."""
+
+    def __init__(self, step):
+        self.step = step
+
+    def replay(self):
+        self.step.flags = self.step.body()
+
+    def reset(self):
+        pass
+
+
+@pytest.mark.parametrize("max_ls", [20, 3])
+def test_lbfgs_batch_static_buffers_match_eager(problems, monkeypatch,
+                                                max_ls):
+    """The graphed path's sequence (a warm-up, a capture that runs nothing,
+    then replays on the static buffers) gives the eager path's result
+    bitwise."""
+    x0 = torch.as_tensor(problems[3])
+    calls = []
+    fg = _batch_fg(problems, calls)
+    eager = minimize_lbfgs_batch(fg, x0, max_iter=60, tol=1e-8,
+                                 max_ls=max_ls)
+    n_calls = len(calls)
+
+    def capture(step):
+        step.graph = _EmulatedGraph(step)
+
+    monkeypatch.setattr(lbfgs._Step, "_capture", capture)
+    lbfgs.reset_counts()
+    x_in = x0.clone()
+    graphed = lbfgs._solve(fg, x_in, 60, 1e-8, 10, max_ls, 3, graphed=True)
+    _same(graphed, eager)
+    assert torch.equal(x_in, x0)   # the start is not a static buffer
+    assert lbfgs.trials_eager == 2 and lbfgs.trials_replayed > 0
+    assert lbfgs.trials_eager + lbfgs.trials_replayed == n_calls

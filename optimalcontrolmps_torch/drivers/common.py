@@ -133,7 +133,7 @@ def effective_chi(max_bond_dim: int, L: int, p: int) -> int:
 
 def build_problem(cfg: InputGroup, seed: int = 1, dtype=None, u0=None,
                   engine: str = "mps", device=None,
-                  state_cache: str = None) -> ProblemSetup:
+                  state_cache: str = None, states=None) -> ProblemSetup:
     """engine: "mps" (the reference's snake TEBD), "vidal" (canonical-form
     brick TEBD with truncation, the long-chain path), "sector" (fixed-N
     dense engine) or "auto" (sector when it fits and the MPS path would be
@@ -142,7 +142,10 @@ def build_problem(cfg: InputGroup, seed: int = 1, dtype=None, u0=None,
     limit), in the Vidal form for engine = vidal. device=None: the
     config's `backend`.
     state_cache: optional npz path of the boundary states, loaded when its
-    fingerprint matches this problem, else written after they are made."""
+    fingerprint matches this problem, else written after they are made.
+    states: the boundary states (psi_i, psi_f) made by the caller, in the
+    engine's form on `device` (a VidalState for engine = vidal); then none
+    is computed, loaded or cached."""
     device = config_device(cfg) if device is None else torch.device(device)
     tstep = cfg.get_real("tstep", 1e-2)
     T = cfg.get_real("T")
@@ -182,7 +185,7 @@ def build_problem(cfg: InputGroup, seed: int = 1, dtype=None, u0=None,
                   "u_ends": [float(u0[0]), float(u0[-1])],
                   "dtype": str(dtype).removeprefix("torch.")}
     cached = (iolib.load_states(state_cache, state_meta)
-              if state_cache else None)
+              if state_cache and states is None else None)
     if engine == "sector":
         stepper = sector.make_sector_stepper(L, d, npart, J_HOP, tstep,
                                              dtype=dtype, device=device)
@@ -203,7 +206,9 @@ def build_problem(cfg: InputGroup, seed: int = 1, dtype=None, u0=None,
                     else A)
     else:
         raise ValueError(f"unknown engine {engine!r}")
-    if cached is not None:
+    if states is not None:
+        psi_i, psi_f = states
+    elif cached is not None:
         psi_i, psi_f = (
             vidal.VidalState(*(torch.as_tensor(a, device=device)
                                for a in s)) if isinstance(s, tuple)

@@ -35,12 +35,16 @@ interior point its multipliers and barrier.
 `engine = vidal` runs every mode on the canonical-form brick TEBD
 (`vidal.py`, truncMethod eigh), whose exact Hessian steps its rows through
 a snake twin; long chains take their boundary states from DMRG.
+
+`solve_ip_host` is the host-mode solve alone, on a problem already built
+(`common.build_problem`); `ip_on_host` says whether `run` takes it.
 """
 
 from __future__ import annotations
 
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -57,7 +61,7 @@ from ..precision import enforce_matmul_precision
 from ..vidal import VidalState
 from .common import build_problem, populations, print_banner, time_axis
 
-__all__ = ["run", "main"]
+__all__ = ["run", "main", "solve_ip_host", "ip_on_host"]
 
 
 class _IdentityBasis:
@@ -85,6 +89,31 @@ def _penalty_and_grad(basis, C):
     return P.detach(), gP
 
 
+class _SolverSettings(NamedTuple):
+    """The optimizer's keys of an InputFile, with the driver's defaults."""
+    opt_tol: float
+    max_iter: int
+    obj_scaling: float
+    max_cpu_s: float
+    mu_strategy: str
+
+
+def _solver_settings(cfg) -> _SolverSettings:
+    return _SolverSettings(
+        opt_tol=cfg.get_real("optTol", 1e-7),
+        max_iter=cfg.get_int("maxIter", 200),
+        obj_scaling=cfg.get_real("ObjScaling", 1.0),
+        max_cpu_s=cfg.get_real("maxCPUHours", 24.0) * 3600.0,
+        mu_strategy=cfg.get_string("muStrategy", "monotone"))
+
+
+def _scaled_cost(p, basis, obj_scaling):
+    """c -> obj_scaling * J(u(c)) on the problem's engine."""
+    eng = engine_for(p.stepper)
+    return lambda c: obj_scaling * eng.cost(
+        p.stepper, p.psi_i, p.psi_f, basis.convert_control(c), p.gamma)
+
+
 def _fidelity_cost(ov, u, gamma, dt):
     return 0.5 * (1.0 - (ov * ov.conj()).real) + regularization(u, gamma, dt)
 
@@ -109,16 +138,13 @@ def run(cfg_path: str, seed: int = 1, out_prefix: str = "") -> dict:
                    if resume or cfg.get_yesno("stateCache", False) else None)
     p = build_problem(cfg, seed=seed, engine=cfg.get_string("engine", "auto"),
                       state_cache=state_cache)
-    opt_tol = cfg.get_real("optTol", 1e-7)
+    opt_tol, max_iter, obj_scaling, max_cpu_s, mu_strategy = \
+        _solver_settings(cfg)
     use_bfgs = cfg.get_yesno("useBFGS", False)
     use_grape = cfg.get_yesno("useGRAPE", False)
-    max_iter = cfg.get_int("maxIter", 200)
     cache = cfg.get_yesno("cacheProgress", False)
     multistart = cfg.get_int("multistart", 1)
     checkpoint_every = cfg.get_int("checkpointEvery", 0)
-    obj_scaling = cfg.get_real("ObjScaling", 1.0)
-    max_cpu_s = cfg.get_real("maxCPUHours", 24.0) * 3600.0
-    mu_strategy = cfg.get_string("muStrategy", "monotone")
 
     print_banner(p, {"Use BFGS approximation": use_bfgs,
                      "GRAPE (no parameterization)": use_grape,
@@ -137,9 +163,7 @@ def run(cfg_path: str, seed: int = 1, out_prefix: str = "") -> dict:
         # the variable is u itself: the path bounds become its box
         path_kw = dict(x_lb=2.0, x_ub=100.0, B=None)
 
-    def cheap(c):
-        return obj_scaling * eng.cost(st, psi_i, psi_f,
-                                      basis.convert_control(c), gamma)
+    cheap = _scaled_cost(p, basis, obj_scaling)
 
     def cheap_batch(C):
         if p.kind == "sector":
@@ -318,12 +342,6 @@ def run(cfg_path: str, seed: int = 1, out_prefix: str = "") -> dict:
         ls_total = max(0, status.get("n_evals", n_iters) - n_iters)
         nprop = p.n_steps * (2 * n_iters + ls_total)
     else:
-        ip_mode = cfg.get_string("ipMode", "auto")
-        # the sector engine's states are small vectors: no host mode there
-        ip_host = (p.kind != "sector" and multistart <= 1
-                   and (ip_mode == "host"
-                        or (ip_mode == "auto"
-                            and (p.chi >= 64 or p.n_steps > 256))))
         duals, mu_cur = None, 0.1
         if ck_extra is not None and "duals" in ck_extra:
             duals = tuple(torch.as_tensor(v, dtype=real, device=dev)
@@ -332,11 +350,11 @@ def run(cfg_path: str, seed: int = 1, out_prefix: str = "") -> dict:
         if duals is not None:
             ip["resumed_from"] = {"x": c0.cpu().numpy().tolist(),
                                   "mu": mu_cur, "duals": _duals_list(duals)}
-        if ip_host:
-            res = _solve_ip_host(cfg, p, eng, basis, gamma, obj_scaling, c0,
-                                 opt_tol, max_iter, mu_strategy, duals,
-                                 mu_cur, max_cpu_s, ck_path,
-                                 progress_cb(0, True), cheap, path_kw)
+        if ip_on_host(cfg, p, multistart):
+            res = solve_ip_host(cfg, p, c0, duals=duals, mu0=mu_cur,
+                                ck_path=ck_path,
+                                callback=progress_cb(0, True), basis=basis,
+                                path_kw=path_kw)
             c_opt, mu_fin = res.x, float(res.mu)
             done_iters = int(res.iterations)
         elif multistart > 1:
@@ -446,13 +464,38 @@ def run(cfg_path: str, seed: int = 1, out_prefix: str = "") -> dict:
     return out
 
 
-def _solve_ip_host(cfg, p, eng, basis, gamma, obj_scaling, c0, opt_tol,
-                   max_iter, mu_strategy, duals, mu0, max_cpu_s, ck_path,
-                   callback, cheap, path_kw):
-    """ipMode = host: the host-loop interior point on the MPS or Vidal
-    engine, with the segmented gradient, the streaming Hessian and a
-    checkpoint after every iteration."""
-    st, psi_i, psi_f = p.stepper, p.psi_i, p.psi_f
+def ip_on_host(cfg, p, multistart: int = 1) -> bool:
+    """Whether `useBFGS = no` takes the host-loop interior point: one ramp
+    on the MPS or Vidal engine (the sector engine's states are small
+    vectors), with ipMode = host, or auto when chi >= 64 or N_t > 256."""
+    ip_mode = cfg.get_string("ipMode", "auto")
+    return (p.kind != "sector" and multistart <= 1
+            and (ip_mode == "host"
+                 or (ip_mode == "auto"
+                     and (p.chi >= 64 or p.n_steps > 256))))
+
+
+def solve_ip_host(cfg, p, c0, duals=None, mu0: float = 0.1, ck_path=None,
+                  callback=None, basis=None, path_kw=None, observe=None):
+    """ipMode = host: the host-loop interior point on the problem p (MPS or
+    Vidal engine) from c0, with the segmented gradient, the streaming
+    Hessian, the config's `_solver_settings`, hessianRowBlock and
+    hessianProgress.
+
+    duals, mu0: the multipliers and the barrier to start from (duals None:
+    a cold start). basis: the decision variable's map to u, and path_kw
+    the solver's bounds (None: p.basis, GROUP, with its path constraint).
+    ck_path: the checkpoint written after every iteration (None: none).
+    callback: minimize_interior_point_host's. observe(c, J, g, H), when
+    given, sees every (J, g, H) the solver receives. Returns its
+    IPResult."""
+    st, psi_i, psi_f, gamma = p.stepper, p.psi_i, p.psi_f, p.gamma
+    eng = engine_for(st)
+    basis = p.basis if basis is None else basis
+    if path_kw is None:
+        path_kw = dict(B=basis.jacobian(), u0=basis.u0)
+    opts = _solver_settings(cfg)
+    obj_scaling = opts.obj_scaling
     row_block = cfg.get_int("hessianRowBlock", 64)
     verbose = cfg.get_yesno("hessianProgress", True)
 
@@ -472,8 +515,11 @@ def _solve_ip_host(cfg, p, eng, basis, gamma, obj_scaling, c0, opt_tol,
         g_c = basis.convert_gradient(g_u)
         print(f"  fgh: J={float(J):.6e} |g|={float(g_c.abs().max()):.3e} "
               f"wall {time.time() - t_h:.1f}s", flush=True)
-        return (obj_scaling * J, obj_scaling * g_c,
-                obj_scaling * basis.convert_hessian(H))
+        out = (obj_scaling * J, obj_scaling * g_c,
+               obj_scaling * basis.convert_hessian(H))
+        if observe is not None:
+            observe(c, *out)
+        return out
 
     def fg_host(c):
         _, J, g_u, _ = fg_aux(c)
@@ -487,10 +533,11 @@ def _solve_ip_host(cfg, p, eng, basis, gamma, obj_scaling, c0, opt_tol,
                       ("z_lo", "z_hi", "w_lo", "w_hi")]})
 
     return minimize_interior_point_host(
-        fgh_host, c0, tol=opt_tol, max_iter=max_iter, fun=cheap,
-        fun_grad=fg_host, callback=callback, checkpoint_cb=ck_cb, mu0=mu0,
-        mu_strategy=mu_strategy, duals0=duals, max_seconds=max_cpu_s,
-        **path_kw)
+        fgh_host, c0, tol=opts.opt_tol, max_iter=opts.max_iter,
+        fun=_scaled_cost(p, basis, obj_scaling), fun_grad=fg_host,
+        callback=callback, checkpoint_cb=None if ck_path is None else ck_cb,
+        mu0=mu0, mu_strategy=opts.mu_strategy, duals0=duals,
+        max_seconds=opts.max_cpu_s, **path_kw)
 
 
 def main(argv=None):

@@ -33,8 +33,10 @@ from . import mps as mpslib
 from .device import resolve_device
 from .parallel.comm import all_reduce_sum
 from .parallel.mesh import row_shard as _row_slice
-from .streaming import (BlockHessian, assemble_hessian, pick_row_block,
-                        rollout_measure, segmented_adjoint_gradient)
+from .profiling import span
+from .streaming import (BlockHessian, assemble_hessian, count_row_steps,
+                        pick_row_block, rollout_measure,
+                        segmented_adjoint_gradient)
 from .tebd import TEBDStepper, tebd_step
 
 __all__ = [
@@ -256,6 +258,9 @@ def hessian(st: TEBDStepper, psi0, psi_target, u, gamma, aux=None,
     together (rows i >= j are frozen, and row 0 and rows past N_t-2 are
     masked out of H, as in the JAX package), then every active row is
     overlapped with xiH_j. aux: (psi_t, xi_t, divT, ov) from `gradient`.
+    The row loop is the span `hessian.rows`; its steps add to
+    `streaming.row_steps`: (N_t - 3)(N_t - 2) / 2 of them, split over the
+    ranks of a row shard.
 
     row_shard: a `parallel.mesh.Mesh`; this rank then steps only its rows
     along the mesh's "rows" axis (row i on row rank i mod n_rows,
@@ -285,13 +290,16 @@ def hessian(st: TEBDStepper, psi0, psi_target, u, gamma, aux=None,
     ovm = torch.zeros((n, n), dtype=rows.dtype, device=rows.device)
     states = rows[mine]
     rows_h = mine.tolist()
-    for j in range(2, n - 1):      # j = 1 has no active row i >= 1
-        a = bisect.bisect_left(rows_h, j)   # this rank's rows i < j
-        if a == 0:
-            continue
-        act = tebd_step(st, states[:a], u[j - 1], u[j], forward=True)
-        states[:a] = act
-        ovm[j, mine[:a]] = _overlap_with(xiH[j], act)  # <xiH_j|psiH_i(t_j)>
+    with span("hessian.rows"):
+        for j in range(2, n - 1):      # j = 1 has no active row i >= 1
+            a = bisect.bisect_left(rows_h, j)   # this rank's rows i < j
+            if a == 0:
+                continue
+            act = tebd_step(st, states[:a], u[j - 1], u[j], forward=True)
+            count_row_steps(a)
+            states[:a] = act
+            # <xiH_j|psiH_i(t_j)>
+            ovm[j, mine[:a]] = _overlap_with(xiH[j], act)
     if row_shard is not None:
         ovm = all_reduce_sum(ovm, row_shard.rows_group)
 

@@ -228,7 +228,11 @@ def move_left(Ai, Aj, method: str = "qr"):
 def apply_site_sum_diag(psi, opdiag, method: str = "eigh"):
     """(sum_i O_i)|psi> for a diagonal single-site O, compressed back to chi:
     the bond-2 MPO is contracted exactly (bond 2 chi), right-canonicalized,
-    then truncated left to right. Returns (normalized MPS batch, norms (B,))."""
+    truncated left to right, and its centre moved back to site 0, where a
+    snake step takes it to be: a Hessian row's first step then truncates in
+    the canonical gauge, as ITensor's does after its own centre move.
+    Returns (normalized MPS batch with its centre on site 0, norms (B,)).
+    """
     B, L, chi, p, _ = psi.shape
     o = torch.as_tensor(opdiag, dtype=psi.dtype, device=psi.device)
     blocks = []
@@ -256,10 +260,12 @@ def apply_site_sum_diag(psi, opdiag, method: str = "eigh"):
         out.append(left.reshape(B, l, p, chi))
         blocks[i + 1] = torch.einsum('bxy,bypc->bxpc', right, blocks[i + 1])
     out.append(blocks[-1])
+    for i in range(L - 1, 0, -1):
+        out[i - 1], out[i] = move_left(out[i - 1], out[i])
 
     res = torch.stack(out, dim=1)
     nrm = norm(res)
-    res[:, L - 1] = res[:, L - 1] * _inv_or_one(nrm).to(
+    res[:, 0] = res[:, 0] * _inv_or_one(nrm).to(
         res.dtype)[:, None, None, None]
     return res, nrm
 

@@ -28,7 +28,14 @@ from functools import lru_cache
 import torch
 
 __all__ = ["split_truncate", "cholesky_orthonormalize", "eigh",
-           "householder_qr"]
+           "householder_qr", "eigh_calls", "reset_counts"]
+
+# calls of `eigh` by matrix size (a call solves a batch of matrices)
+eigh_calls: dict = {}
+
+
+def reset_counts() -> None:
+    eigh_calls.clear()
 
 _RSVD_ITERS = 3
 _RSVD_OVERSAMPLE = 8
@@ -181,7 +188,10 @@ def eigh(rho):
     eigh failed to converge on the density matrix of a chain-end bond of a
     reference-scale state (chi=128, p=8: rank 8 of 1024 after the jitter)
     where complex128 converged, at +25-35% of the time
-    (tools/probe_scaled_linalg.py); the same on every device."""
+    (tools/probe_scaled_linalg.py); the same on every device. Each call
+    adds one to `eigh_calls[m]`, m the matrices' size."""
+    m = rho.shape[-1]
+    eigh_calls[m] = eigh_calls.get(m, 0) + 1
     if rho.dtype in _DOUBLE:
         return torch.linalg.eigh(rho)
     w, v = torch.linalg.eigh(rho.to(torch.complex128 if rho.is_complex()

@@ -27,6 +27,8 @@ Two drivers over the same `_IPCore`:
 * `minimize_interior_point_host` solves one problem whose f/g/H is an
   arbitrary host-driven composite (the streaming exact Hessian), with an
   early-exit line search, per-iteration checkpoints and a wall-clock limit.
+  Each iteration is the span `ip.iteration` and its line search the span
+  `ip.line_search`; `host_iterations` and `host_trials` count them.
 
 Linear algebra is `torch.linalg.eigvalsh` and `torch.linalg.solve`, batched
 over lanes (the JAX package's LAPACK route on CPU and GPU).
@@ -40,8 +42,21 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..profiling import span
+
 __all__ = ["IPResult", "minimize_interior_point",
-           "minimize_interior_point_host", "cold_duals"]
+           "minimize_interior_point_host", "cold_duals", "host_iterations",
+           "host_trials", "reset_counts"]
+
+# iterations and line-search trials of minimize_interior_point_host
+host_iterations = 0
+host_trials = 0
+
+
+def reset_counts() -> None:
+    global host_iterations, host_trials
+    host_iterations = 0
+    host_trials = 0
 
 
 def cold_duals(x0, mu0=0.1, x_lb=-20.0, x_ub=20.0, B=None, u0=None,
@@ -491,6 +506,7 @@ def minimize_interior_point_host(
     check in place of one more Hessian. callback matches
     minimize_interior_point's.
     """
+    global host_iterations, host_trials
     t_start = time.time()
     dtype, dev = x0.dtype, x0.device
     if fun is None:
@@ -526,40 +542,46 @@ def minimize_interior_point_host(
     converged = False
     f = g = None
     while it < max_iter:
-        f, g, H = fun_grad_hess(s["x"][0])
-        f, g, H = tens(f), tens(g), tens(H)
-        P = core.iter_prep(s, f[None], g[None], H[None])
-        err0 = float(P["err0"][0])
-        if err0 <= tol:
-            converged = True
-            s["err0"], s["f"] = P["err0"], f[None]
-            break
-        a_p = float(P["a_p"][0])
-        mu_next = float(P["mu_next"][0])
-        x_np = s["x"][0].cpu().numpy().astype(np.float64)
-        dx_np = P["dx"][0].cpu().numpy().astype(np.float64)
-        phi0 = float(f) - mu_next * barrier_h(x_np)
-        dphi = float(P["dphi"][0])
-        a, found, trials = a_p, False, 0
-        for _ in range(max_ls):
-            trials += 1
-            if phi_h(x_np + a * dx_np, mu_next) <= phi0 + 1e-4 * a * dphi:
-                found = True
+        with span("ip.iteration"):
+            f, g, H = fun_grad_hess(s["x"][0])
+            f, g, H = tens(f), tens(g), tens(H)
+            P = core.iter_prep(s, f[None], g[None], H[None])
+            err0 = float(P["err0"][0])
+            if err0 <= tol:
+                converged = True
+                s["err0"], s["f"] = P["err0"], f[None]
                 break
-            a *= 0.5
-        a_use = a if found else 1e-3 * a_p
-        if callback is not None:
-            callback(it + 1, float(f), err0, trials)
-        P = {**P, "found": torch.tensor([found], device=dev)}
-        s = core.iter_apply(s, P, tens([a_use]))
-        it += 1
-        if checkpoint_cb is not None:
-            checkpoint_cb(it, {k: v[0].cpu().numpy() for k, v in s.items()},
-                          float(f), err0)
-        if max_seconds is not None and time.time() - t_start > max_seconds:
-            print("minimize_interior_point_host: max_seconds reached; "
-                  "stopping", flush=True)
-            break
+            a_p = float(P["a_p"][0])
+            mu_next = float(P["mu_next"][0])
+            x_np = s["x"][0].cpu().numpy().astype(np.float64)
+            dx_np = P["dx"][0].cpu().numpy().astype(np.float64)
+            phi0 = float(f) - mu_next * barrier_h(x_np)
+            dphi = float(P["dphi"][0])
+            a, found, trials = a_p, False, 0
+            with span("ip.line_search"):
+                for _ in range(max_ls):
+                    trials += 1
+                    if phi_h(x_np + a * dx_np, mu_next) \
+                            <= phi0 + 1e-4 * a * dphi:
+                        found = True
+                        break
+                    a *= 0.5
+            host_trials += trials
+            a_use = a if found else 1e-3 * a_p
+            if callback is not None:
+                callback(it + 1, float(f), err0, trials)
+            P = {**P, "found": torch.tensor([found], device=dev)}
+            s = core.iter_apply(s, P, tens([a_use]))
+            it += 1
+            host_iterations += 1
+            if checkpoint_cb is not None:
+                checkpoint_cb(it, {k: v[0].cpu().numpy()
+                                   for k, v in s.items()}, float(f), err0)
+            if max_seconds is not None \
+                    and time.time() - t_start > max_seconds:
+                print("minimize_interior_point_host: max_seconds reached; "
+                      "stopping", flush=True)
+                break
 
     if converged:
         f_fin, g_fin = f, g

@@ -5,6 +5,8 @@ cache (PyTorch runs eagerly; there is nothing compiled to cache):
 
 * `trace`: a `torch.profiler` window, written as a Chrome trace;
 * `annotate`: a named range on that timeline;
+* `span` / `collect_spans`: the program's own named ranges, whose seconds
+  are summed while a collector is installed;
 * `DeviceTimer`: wall-clock laps that wait for the card's work;
 * `PropagationCounter`: the reference's Nprop accounting.
 """
@@ -18,7 +20,13 @@ from dataclasses import dataclass, field
 
 import torch
 
-__all__ = ["trace", "DeviceTimer", "PropagationCounter", "annotate"]
+__all__ = ["trace", "DeviceTimer", "PropagationCounter", "annotate",
+           "span", "collect_spans"]
+
+# the installed span collector ({name: seconds}) and the device it waits
+# for; None: spans are profiler ranges only
+_collector = None
+_collector_device = None
 
 
 @contextlib.contextmanager
@@ -38,6 +46,43 @@ def trace(log_dir: str):
 def annotate(name: str):
     """A named range on the profiler's timeline (record_function)."""
     return torch.profiler.record_function(name)
+
+
+@contextlib.contextmanager
+def span(name: str):
+    """A named range of the program (`annotate`). While `collect_spans` has
+    a collector installed, the range also waits for the collector's device
+    at its end and adds its wall seconds to the collector under `name`;
+    without one it adds no wait, so the program runs as it would without
+    the range."""
+    if _collector is None:
+        with annotate(name):
+            yield
+        return
+    t0 = time.perf_counter()
+    with annotate(name):
+        yield
+        if _collector_device is not None:
+            torch.cuda.synchronize(_collector_device)
+    _collector[name] = _collector.get(name, 0.0) + time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def collect_spans(device=None):
+    """Install a span collector for the block: yields {name: seconds},
+    summed over every `span` that ends inside it (nested spans each count
+    their own). device: the CUDA device each span waits for at its end
+    (None, or a CPU device: no wait)."""
+    global _collector, _collector_device
+    saved = _collector, _collector_device
+    _collector = {}
+    dev = None if device is None else torch.device(device)
+    _collector_device = dev if dev is not None and dev.type == "cuda" \
+        else None
+    try:
+        yield _collector
+    finally:
+        _collector, _collector_device = saved
 
 
 def _cuda_devices(x, found: set) -> set:

@@ -16,14 +16,37 @@ Counterpart of optimalcontrolmps_tpu/streaming.py, generic over the engine
   one block of rows at a time is stepped through the later time blocks,
   and the xiH_j partners are re-derived from checkpoints of xi. The
   overlaps stay on the device until the one assembly.
+
+Spans (`profiling.span`): `gradient.segmented`; in `BlockHessian.ov_data`
+`hessian.psi_xi` (the psi and xi steps), `hessian.apply_dh` and
+`hessian.rows` (the row steps and their overlaps). `row_steps` counts the
+exact Hessians' row steps (rows times Trotter steps, here and in
+`engine.hessian`).
 """
 
 from __future__ import annotations
 
 import torch
 
+from .profiling import span
+
 __all__ = ["rollout_measure", "pick_segment", "segmented_adjoint_gradient",
-           "pick_row_block", "BlockHessian", "assemble_hessian"]
+           "pick_row_block", "BlockHessian", "assemble_hessian",
+           "row_steps", "count_row_steps", "reset_counts"]
+
+# row states stepped one Trotter step, summed over the exact Hessians' row
+# batches: the Hessian's part of the reference's Nprop
+row_steps = 0
+
+
+def reset_counts() -> None:
+    global row_steps
+    row_steps = 0
+
+
+def count_row_steps(n: int) -> None:
+    global row_steps
+    row_steps += int(n)
 
 
 def rollout_measure(step_fwd, psi0, u, measure):
@@ -57,6 +80,7 @@ def pick_segment(n_steps: int, target: int | None = None) -> int:
     return 1
 
 
+@span("gradient.segmented")
 def segmented_adjoint_gradient(step_fwd, step_bwd, sandwich, overlap,
                                reg_grad, psi0, psi_target, u, dt,
                                seg: int | None = None):
@@ -150,16 +174,21 @@ class BlockHessian:
         n, R, S = self.n, self.R, self.S
         fwd, bwd = self.fwd, self.bwd
 
-        psi_cps, psi = [], psi0          # psi_{sR}
-        for s in range(S):
-            psi_cps.append(psi)
-            for i in range(s * R, s * R + R):
-                psi = fwd(psi, u[i], u[i + 1])
-        xi_cps, xi = [None] * S, psi_target   # xi_{(s+1)R}
-        for s in reversed(range(S)):
-            xi_cps[s] = xi
-            for i in range(s * R + R, s * R, -1):
-                xi = bwd(xi, u[i], u[i - 1])
+        def apply_dh(states):
+            with span("hessian.apply_dh"):
+                return self.apply_dh(torch.cat([get_b(x) for x in states]))
+
+        with span("hessian.psi_xi"):
+            psi_cps, psi = [], psi0          # psi_{sR}
+            for s in range(S):
+                psi_cps.append(psi)
+                for i in range(s * R, s * R + R):
+                    psi = fwd(psi, u[i], u[i + 1])
+            xi_cps, xi = [None] * S, psi_target   # xi_{(s+1)R}
+            for s in reversed(range(S)):
+                xi_cps[s] = xi
+                for i in range(s * R + R, s * R, -1):
+                    xi = bwd(xi, u[i], u[i - 1])
 
         get_b = self.get_b
         cdt = get_b(psi0).dtype
@@ -171,34 +200,38 @@ class BlockHessian:
         diag_ov = torch.zeros(n, dtype=cdt, device=dev)
         for c in range(S):
             i0 = c * R
-            bs = [psi_cps[c]]                    # psi_{i0 .. i0+R-1}
-            for i in range(i0, i0 + R - 1):
-                bs.append(fwd(bs[-1], u[i], u[i + 1]))
-            xs, x = [None] * R, xi_cps[c]        # xi_{i0 .. i0+R-1}
-            for k in reversed(range(R)):
-                x = bwd(x, u[i0 + k + 1], u[i0 + k])
-                xs[k] = x
-            rows, rn = self.apply_dh(torch.cat([get_b(b) for b in bs]))
-            xih, xn = self.apply_dh(torch.cat([get_b(x) for x in xs]))
+            with span("hessian.psi_xi"):
+                bs = [psi_cps[c]]                # psi_{i0 .. i0+R-1}
+                for i in range(i0, i0 + R - 1):
+                    bs.append(fwd(bs[-1], u[i], u[i + 1]))
+                xs, x = [None] * R, xi_cps[c]    # xi_{i0 .. i0+R-1}
+                for k in reversed(range(R)):
+                    x = bwd(x, u[i0 + k + 1], u[i0 + k])
+                    xs[k] = x
+            rows, rn = apply_dh(bs)
+            xih, xn = apply_dh(xs)
             row_norm[i0:i0 + R] = rn
             xih_norm[i0:i0 + R] = xn
             diag_ov[i0:i0 + R] = self.overlap(xih, rows)
             for s in range(c, S):
                 j0 = s * R
-                xs, x = [None] * R, xi_cps[s]    # xi_{j0+1 .. j0+R}
-                xs[R - 1] = x
-                for k in range(R - 2, -1, -1):
-                    x = bwd(x, u[j0 + k + 2], u[j0 + k + 1])
-                    xs[k] = x
-                xih, xn = self.apply_dh(torch.cat([get_b(x) for x in xs]))
-                for k in range(R):
-                    # rows i <= j0 + k step from t_{j0+k} to t_{j0+k+1}
-                    na = R if s > c else k + 1
-                    stepped = self.row_step(rows[:na], u[j0 + k],
-                                            u[j0 + k + 1])
-                    rows = torch.cat([stepped, rows[na:]])
-                    ovm[j0 + 1 + k, i0:i0 + R] = self.overlap(
-                        xih[k:k + 1].expand(R, *xih.shape[1:]), rows)
+                with span("hessian.psi_xi"):
+                    xs, x = [None] * R, xi_cps[s]    # xi_{j0+1 .. j0+R}
+                    xs[R - 1] = x
+                    for k in range(R - 2, -1, -1):
+                        x = bwd(x, u[j0 + k + 2], u[j0 + k + 1])
+                        xs[k] = x
+                xih, xn = apply_dh(xs)
+                with span("hessian.rows"):
+                    for k in range(R):
+                        # rows i <= j0 + k step from t_{j0+k} to t_{j0+k+1}
+                        na = R if s > c else k + 1
+                        stepped = self.row_step(rows[:na], u[j0 + k],
+                                                u[j0 + k + 1])
+                        count_row_steps(na)
+                        rows = torch.cat([stepped, rows[na:]])
+                        ovm[j0 + 1 + k, i0:i0 + R] = self.overlap(
+                            xih[k:k + 1].expand(R, *xih.shape[1:]), rows)
                 xih_norm[j0 + 1:j0 + R + 1] = xn
                 if progress is not None:
                     progress(c, s)

@@ -33,7 +33,17 @@ from .ops.gates import j_gate
 from .ops.trunc import split_truncate
 from .sites import nn1_diag
 
-__all__ = ["TEBDStepper", "make_stepper", "exact_rank_bound", "tebd_step"]
+__all__ = ["TEBDStepper", "make_stepper", "exact_rank_bound", "tebd_step",
+           "steps", "reset_counts"]
+
+# Trotter steps taken by `tebd_step`, summed over the states of each batch
+steps = 0
+
+
+def reset_counts() -> None:
+    global steps
+    steps = 0
+
 
 @dataclasses.dataclass(frozen=True)
 class TEBDStepper:
@@ -164,12 +174,15 @@ def _phase(st: TEBDStepper, u, B, dtype):
 
 def tebd_step(st: TEBDStepper, A, u_from, u_to, forward: bool = True):
     """One full Trotter step of a batch A (B, L, chi, p, chi); the center
-    is at site 0 on entry and exit. u_from, u_to: scalars or (B,)."""
+    is at site 0 on entry and exit. u_from, u_to: scalars or (B,). Adds B
+    to `steps`."""
+    global steps
     if st.sweep == "vidal":
         raise TypeError("sweep='vidal' states are vidal.VidalState; step "
                         "them with vidal.vidal_step")
     L, chi, method, gauge = st.L, st.chi, st.trunc_method, st.gauge_method
     B = A.shape[0]
+    steps += B
     gate = st.gate_fwd if forward else st.gate_bwd
     sign = 1.0 if forward else -1.0
     ph_from = _phase(st, sign * torch.as_tensor(u_from), B, A.dtype)

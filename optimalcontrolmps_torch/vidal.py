@@ -63,8 +63,16 @@ __all__ = [
     "cost", "fidelities", "fidelities_streaming", "gradient",
     "gradient_lowmem", "gradient_segmented", "cost_and_gradient", "hessian",
     "hessian_streaming", "bond_renyi2", "bond_vn_entropy",
-    "rollout_diagnostics",
+    "rollout_diagnostics", "steps", "reset_counts",
 ]
+
+# Trotter steps taken by `vidal_step`, summed over the states of each batch
+steps = 0
+
+
+def reset_counts() -> None:
+    global steps
+    steps = 0
 
 
 class VidalState(NamedTuple):
@@ -254,10 +262,12 @@ def vidal_step(st: TEBDStepper, state: VidalState, u_from, u_to,
 
     tp_mesh: a `parallel.mesh.Mesh`; each stage's bonds are then split over
     its "rows" axis (tensor parallelism, `_stage`), and every rank returns
-    the whole stepped state."""
+    the whole stepped state. Adds the batch size to `steps`."""
+    global steps
     L, chi = st.L, st.chi
     B = state.B
     Bt = B.shape[0]
+    steps += Bt
     gate = st.gate_fwd if forward else st.gate_bwd
     sign = 1.0 if forward else -1.0
     ph_from = _phase(st, sign * torch.as_tensor(u_from), Bt, B.dtype)

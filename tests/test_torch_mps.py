@@ -219,6 +219,20 @@ def test_apply_site_sum_diag(states):
            np.asarray(jmps.to_statevector(jC)) * float(jn))
 
 
+def test_apply_site_sum_diag_leaves_the_centre_on_site_0():
+    """dH|psi>, truncated (chi 4 of the exact 8), comes back with sites 1
+    to L-1 right isometries and its unit norm on site 0: the centre is
+    where a snake step takes it to be, so a Hessian row's first step
+    truncates in the canonical gauge."""
+    C, _ = mps.apply_site_sum_diag(_t(_random_mps(3, chi=4)),
+                                   0.5 * nn1_diag(P - 1))
+    for k in range(1, L):
+        m = C[0, k].reshape(4, -1)
+        _close(m @ m.conj().T, np.eye(4))
+    _close(torch.linalg.vector_norm(C[0, 0]), 1.0)
+    _close(mps.norm(C)[0], 1.0)
+
+
 def test_entanglement_entropies(states):
     a, _ = states
     _close(mps.entanglement_entropies(_t(a))[0],

@@ -11,7 +11,9 @@ Builds the hand-written Hopper kernels of optimalcontrolmps_torch from csrc/
    complex128 first, up to chi=200 in complex128 and p=10) and on the
    `unbind` views of an MPS batch, with its per-call time (CUDA events) and
    device time per launch (torch.profiler) beside the twin, the einsum
-   yardstick and the bound;
+   yardstick and the bound; then the bond update's eigensolver fan-out
+   (`ops.trunc.eigh` in concurrent shares) bitwise against one call at
+   EIGH_FANOUT_SHAPES, and its probe's table (ms per call at each width);
 2. checks the MPS engine's CostTests golden (L=5, d=5, chi=40, T=0.1, the
    linear ramp 2 -> 50: cost 0.375995 to 1e-5);
 3. runs `engine.cost_and_gradient` on the shipped T=2.0 problem on the
@@ -227,6 +229,21 @@ TP_THETA_SHAPES = ((5, 128, 8), (4, 128, 8))
 # first against the Python twin (indices exact, values to 1e-12)
 NATIVE_CASES = ((10, 4, 10), (12, 5, 12))
 NATIVE_COO_TOL = 1e-12
+# the bond update's eigensolver fan-out (`ops/trunc.eigh` in concurrent
+# shares): held to one torch.linalg.eigh call bitwise at the shapes the
+# cells give it, (batch, n, dtype): a Vidal stage's even and odd bonds at
+# chi 70, p 8 (complex128, and complex64, which eigh solves in complex128),
+# the MPS cell's lanes at chi 25, p 5. The probe's table times eigh at
+# each width of EIGH_PROBE_WIDTHS (capped at the batch; 1 is one call) at
+# every batch EIGH_PROBE_BATCHES of 560 x 560 (the Vidal stages and the
+# interior point's row batches), and at 4 and 8 matrices of each size of
+# EIGH_PROBE_SMALL_N (the MPS cell's 125, and around the one-call
+# threshold)
+EIGH_FANOUT_SHAPES = ((10, 560, torch.complex128), (9, 560, torch.complex128),
+                      (4, 125, torch.complex128), (10, 560, torch.complex64))
+EIGH_PROBE_WIDTHS = (1, 2, 3, 4, 6, 8, 10, 12)
+EIGH_PROBE_BATCHES = tuple(range(1, 13))
+EIGH_PROBE_SMALL_N = (48, 64, 96, 125, 256)
 
 # published H100 SXM peaks (NVIDIA data sheet): memory; fp32 on the CUDA
 # cores; fp64 through the tensor cores (DMMA), the card's peak for the type
@@ -544,6 +561,112 @@ def check_bond_theta() -> dict:
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
         "checks": checks}}
+
+
+def density_batch(B: int, n: int, dtype, seed: int = 0):
+    """A batch (B, n, n) of jittered density matrices on the card, as the
+    bond update makes them: m^H m for m with Schmidt-like row weights
+    exp(-k / 16), through `ops.trunc._jitter`."""
+    from optimalcontrolmps_torch.ops import trunc
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    m = torch.randn((B, n, n), generator=g, dtype=torch.complex128,
+                    device="cuda")
+    m = m * torch.exp(-torch.arange(n, device="cuda") / 16.0)[:, None]
+    return trunc._jitter(m.mH @ m).to(dtype)
+
+
+class fanout_pool:
+    """Within the block `ops.trunc._eigh_fanout` runs on a pool of `width`
+    threads of its own, so that the probe's table can reach every width of
+    EIGH_PROBE_WIDTHS."""
+
+    def __init__(self, width: int):
+        self.width = width
+
+    def __enter__(self):
+        from optimalcontrolmps_torch.ops import trunc
+        self.saved = trunc._FANOUT_WIDTH, trunc._pool
+        trunc._FANOUT_WIDTH, trunc._pool = self.width, None
+
+    def __exit__(self, *exc):
+        from optimalcontrolmps_torch.ops import trunc
+        if trunc._pool is not None:
+            trunc._pool.shutdown()
+        trunc._FANOUT_WIDTH, trunc._pool = self.saved
+
+
+def eigh_width_ms(rho, widths, reps: int = 7) -> dict:
+    """{width: median host milliseconds of one eigh of the batch rho to the
+    card's end}: width 1 is one torch.linalg.eigh call, a wider one
+    `ops.trunc._eigh_fanout` at that width. The widths take turns in each
+    of `reps` rounds, after one warm-up round (the caller waits inside
+    each call whether or not it fans out, so the host clock is the call's
+    time)."""
+    from optimalcontrolmps_torch.ops import trunc
+
+    def call(width):
+        if width == 1:
+            return torch.linalg.eigh(rho)
+        return trunc._eigh_fanout(rho, width)
+    laps = {w: [] for w in widths}
+    for r in range(reps + 1):
+        for width in widths:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call(width)
+            torch.cuda.synchronize()
+            if r:
+                laps[width].append((time.perf_counter() - t0) * 1e3)
+    return {w: sorted(v)[len(v) // 2] for w, v in laps.items()}
+
+
+def check_eigh_fanout(table: bool = True) -> dict:
+    """`ops.trunc.eigh` fanned out against one torch.linalg.eigh call at
+    EIGH_FANOUT_SHAPES: eigenvalues and eigenvectors bitwise equal, the
+    eigenvectors in one call's layout, `eigh_fanout` counting the batch;
+    then (table=True) the probe's table, ms per call at each width."""
+    from optimalcontrolmps_torch.ops import trunc
+    out = {"checks": [], "table": []}
+    for B, n, dtype in EIGH_FANOUT_SHAPES:
+        rho = density_batch(B, n, dtype)
+        wide = rho.to(torch.complex128)
+        w_ref, v_ref = torch.linalg.eigh(wide)
+        width = min(B, trunc._FANOUT_WIDTH)
+        trunc.reset_counts()
+        w, v = trunc._eigh_fanout(wide, width)
+        torch.cuda.synchronize()
+        same = (torch.equal(w, w_ref) and torch.equal(v, v_ref)
+                and v.stride() == v_ref.stride())
+        name = str(dtype).split(".")[-1]
+        print(f"eigh fan-out vs one call ({B}, {n}, {n}) {name}, width "
+              f"{width}: bitwise {same}, eigh_fanout {trunc.eigh_fanout}")
+        counted = dict(trunc.eigh_fanout)
+        if not same or counted != {n: B}:
+            fail(f"the fanned-out eigh differs from one call at ({B}, {n}, "
+                 f"{n}) {name}: max|dw| "
+                 f"{float((w - w_ref).abs().max()):.3e}")
+        w1, v1 = trunc.eigh(rho)
+        if not (torch.equal(w1, w_ref.to(w1.dtype))
+                and torch.equal(v1, v_ref.to(v1.dtype))):
+            fail(f"ops.trunc.eigh differs from one call at ({B}, {n}, {n}) "
+                 f"{name}")
+        out["checks"].append({"shape": [B, n, n], "dtype": name,
+                              "width": width, "bitwise": same,
+                              "eigh_fanout": counted})
+    if not table:
+        return out
+    rows = [(B, 560) for B in EIGH_PROBE_BATCHES]
+    rows += [(B, n) for n in EIGH_PROBE_SMALL_N for B in (4, 8)]
+    with fanout_pool(max(EIGH_PROBE_WIDTHS)):
+        for B, n in rows:
+            rho = density_batch(B, n, torch.complex128, seed=B)
+            ms = eigh_width_ms(rho, [w for w in EIGH_PROBE_WIDTHS if w <= B])
+            cells = ", ".join(f"w{k} {v:.2f} ({ms[1] / v:.2f}x)"
+                              for k, v in ms.items())
+            print(f"eigh probe ({B}, {n}, {n}) complex128: ms per call "
+                  f"{cells}")
+            out["table"].append({"B": B, "n": n, "ms": ms})
+    return out
 
 
 def check_golden() -> float:
@@ -1929,6 +2052,8 @@ def main() -> None:
     phases.done("sector kernels vs twins")
     kernels.update(check_bond_theta())
     phases.done("bond_theta kernel vs twin")
+    print(json.dumps({"eigh_fanout": check_eigh_fanout()}))
+    phases.done("eigh fan-out vs one call, the probe's table")
     check_golden()
     phases.done("MPS golden")
     _, mps_card = check_card_vs_cpu()

@@ -23,19 +23,26 @@ backend without factorizations; they are not ported.
 from __future__ import annotations
 
 import math
+import threading
+from concurrent.futures import ThreadPoolExecutor, wait
 from functools import lru_cache
 
 import torch
 
+from .. import profiling
+
 __all__ = ["split_truncate", "cholesky_orthonormalize", "eigh",
-           "householder_qr", "eigh_calls", "reset_counts"]
+           "householder_qr", "eigh_calls", "eigh_fanout", "reset_counts"]
 
 # calls of `eigh` by matrix size (a call solves a batch of matrices)
 eigh_calls: dict = {}
+# matrices of each size that `eigh` solved in concurrent shares on the card
+eigh_fanout: dict = {}
 
 
 def reset_counts() -> None:
     eigh_calls.clear()
+    eigh_fanout.clear()
 
 _RSVD_ITERS = 3
 _RSVD_OVERSAMPLE = 8
@@ -182,20 +189,130 @@ def _top_eigenspace_rsvd(rho, chi: int, iters: int = _RSVD_ITERS):
     return q @ v.flip(-1)[..., :chi]
 
 
+# The fan-out of a batch over concurrent shares on the card (`eigh`): at
+# most _FANOUT_WIDTH shares, for matrices larger than _ONE_CALL_MAX_N
+# (PERF.md §6: tools/probe_eigh_fanout.py's table on an H100)
+_FANOUT_WIDTH = 8
+_ONE_CALL_MAX_N = 64
+
+_pool = None
+_pool_lock = threading.Lock()
+_worker = threading.local()
+
+
+def _fanout_width(rho) -> int:
+    """The number of concurrent shares `eigh` solves the batch rho (..., n,
+    n) in: min(batch, _FANOUT_WIDTH) on the card for n > _ONE_CALL_MAX_N;
+    1, one call, for a single matrix and on the CPU. (At n <= 32 PyTorch
+    takes cuSOLVER's batched Jacobi solver; up to 64, four matrices solved
+    one after another took less time than in shares.)"""
+    batch = math.prod(rho.shape[:-2])
+    if not rho.is_cuda or batch < 2 or rho.shape[-1] <= _ONE_CALL_MAX_N:
+        return 1
+    return min(batch, _FANOUT_WIDTH)
+
+
+def _shares(batch: int, width: int) -> list:
+    """[(lo, hi), ...]: `width` contiguous shares covering range(batch) in
+    order, the first ones taking one more (10 over 4 -> 3/3/2/2; empty
+    ones when width > batch). Also the tensor-parallel Vidal stage's
+    shares of its bonds over ranks (`vidal._stage`)."""
+    out, lo = [], 0
+    for r in range(width):
+        hi = lo + batch // width + (1 if r < batch % width else 0)
+        out.append((lo, hi))
+        lo = hi
+    return out
+
+
+def _gather(parts: list, n: int):
+    """The shares' (w, v) put back in order into one (w (B, n), v (B, n,
+    n)), v in the shares' matrix layout (cuSOLVER's column-major, as one
+    call returns it)."""
+    w = torch.cat([p[0] for p in parts])
+    v0 = parts[0][1]
+    v = torch.empty_strided((w.shape[0], n, n), (n * n, *v0.stride()[1:]),
+                            dtype=v0.dtype, device=v0.device)
+    lo = 0
+    for _, vs in parts:
+        v[lo:lo + vs.shape[0]].copy_(vs)
+        lo += vs.shape[0]
+    return w, v
+
+
+def _solve_share(x, ready):
+    """A pool thread's part of `_eigh_fanout`: eigh of the share x on this
+    thread's own stream, after the caller's event `ready`. Returns (w, v,
+    the event that follows them)."""
+    streams = _worker.__dict__.setdefault("streams", {})
+    stream = streams.get(x.device)
+    if stream is None:
+        stream = streams[x.device] = torch.cuda.Stream(x.device)
+    with torch.cuda.stream(stream):
+        stream.wait_event(ready)
+        x.record_stream(stream)
+        w, v = torch.linalg.eigh(x)
+        done = torch.cuda.Event()
+        done.record(stream)
+    return w, v, done
+
+
+def _eigh_fanout(x, width: int):
+    """torch.linalg.eigh of the batch x (..., n, n) on the card in `width`
+    contiguous shares solved at the same time, each by a thread of a
+    persistent pool on its own stream: cuSOLVER's one-matrix syevd, which
+    PyTorch loops over a batch of n > 32, waits on the host between its
+    phases, so one share's waits overlap the others' kernels. Every matrix
+    is solved by the same syevd on the same input as in one call. A
+    worker's exception is raised here."""
+    global _pool
+    n = x.shape[-1]
+    flat = x.reshape(-1, n, n)
+    eigh_fanout[n] = eigh_fanout.get(n, 0) + flat.shape[0]
+    with _pool_lock:
+        if _pool is None:
+            # PyTorch loads its CUDA linear-algebra library at the first
+            # such call in a process, and two threads making that call at
+            # once fail ("lazy wrapper should be called at most once"):
+            # load it here, on the caller's thread
+            torch.linalg.eigh(torch.eye(2, dtype=x.dtype, device=x.device))
+            _pool = ThreadPoolExecutor(_FANOUT_WIDTH,
+                                       thread_name_prefix="trunc.eigh")
+    with profiling.annotate("trunc.eigh_fanout"):
+        caller = torch.cuda.current_stream(x.device)
+        ready = torch.cuda.Event()
+        ready.record(caller)
+        futures = [_pool.submit(_solve_share, flat[lo:hi], ready)
+                   for lo, hi in _shares(flat.shape[0], width)]
+        wait(futures)
+        parts = [f.result() for f in futures]
+        for w, v, done in parts:
+            caller.wait_event(done)
+            w.record_stream(caller)
+            v.record_stream(caller)
+        w, v = _gather([(w, v) for w, v, _ in parts], n)
+    return w.reshape(x.shape[:-1]), v.reshape(x.shape)
+
+
 def eigh(rho):
     """torch.linalg.eigh of a batch of Hermitian matrices; a single-precision
     batch is solved in double precision and cast back. cuSOLVER's complex64
     eigh failed to converge on the density matrix of a chain-end bond of a
     reference-scale state (chi=128, p=8: rank 8 of 1024 after the jitter)
     where complex128 converged, at +25-35% of the time
-    (tools/probe_scaled_linalg.py); the same on every device. Each call
+    (tools/probe_scaled_linalg.py); the same on every device. On the card a
+    batch is solved in concurrent shares (`_fanout_width`,
+    `_eigh_fanout`), each matrix by the syevd one call gives it. Each call
     adds one to `eigh_calls[m]`, m the matrices' size."""
     m = rho.shape[-1]
     eigh_calls[m] = eigh_calls.get(m, 0) + 1
+    x = rho
+    if rho.dtype not in _DOUBLE:
+        x = rho.to(torch.complex128 if rho.is_complex() else torch.float64)
+    width = _fanout_width(x)
+    w, v = torch.linalg.eigh(x) if width == 1 else _eigh_fanout(x, width)
     if rho.dtype in _DOUBLE:
-        return torch.linalg.eigh(rho)
-    w, v = torch.linalg.eigh(rho.to(torch.complex128 if rho.is_complex()
-                                    else torch.float64))
+        return w, v
     return w.to(rho.real.dtype), v.to(rho.dtype)
 
 

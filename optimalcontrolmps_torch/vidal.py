@@ -51,7 +51,7 @@ from .device import resolve_device
 from .engine import (hessian as mps_hessian, regularization,
                      regularization_grad, regularization_hessian)
 from .ops.bond_theta import bond_theta
-from .ops.trunc import _jitter, eigh
+from .ops.trunc import _jitter, _shares, eigh
 from .parallel.comm import all_gather_cat
 from .streaming import (BlockHessian, assemble_hessian, pick_row_block,
                         rollout_measure, segmented_adjoint_gradient)
@@ -197,12 +197,6 @@ def _bond_update(Bi, Bj, lam_left, gate, chi):
     return Bi_new, Bj_new, lam, disc
 
 
-def _split(n: int, parts: int) -> list:
-    """Contiguous shares of n items over `parts` ranks, the first ranks
-    taking one more (10 -> 5/5, 9 -> 5/4)."""
-    return [n // parts + (1 if r < n % parts else 0) for r in range(parts)]
-
-
 def _stage(T, lam, bonds, gate, chi, disc=None, shard=None):
     """Update the DISJOINT `bonds` of every lane as one batched call: the
     (bond, lane) pairs are stacked bond-major. T: list of L sites (Bt, chi,
@@ -210,19 +204,19 @@ def _stage(T, lam, bonds, gate, chi, disc=None, shard=None):
     dict that receives each bond's discarded weight (Bt,).
 
     shard: a `parallel.mesh.Mesh` (tensor parallelism): the bonds are split
-    into contiguous shares over its "rows" axis (`_split`), each rank
-    updates its share in one call, and (Bi', Bj', lam'[, disc]) are
-    all-gathered over the rows group, so every rank holds the whole chain
-    for the next stage."""
+    into contiguous shares over its "rows" axis (`ops.trunc._shares`: 10
+    -> 5/5, 9 -> 5/4), each rank updates its share in one call, and (Bi',
+    Bj', lam'[, disc]) are all-gathered over the rows group, so every rank
+    holds the whole chain for the next stage."""
     if not bonds:
         return
     Bt = T[0].shape[0]
     ones = torch.ones_like(lam[0])
     todo = bonds
     if shard is not None:
-        shares = _split(len(bonds), shard.n_rows)
-        lo = sum(shares[:shard.row_rank])
-        todo = bonds[lo:lo + shares[shard.row_rank]]
+        shares = _shares(len(bonds), shard.n_rows)
+        lo, hi = shares[shard.row_rank]
+        todo = bonds[lo:hi]
     if todo:
         Bi = torch.cat([T[b] for b in todo])
         Bj = torch.cat([T[b + 1] for b in todo])
@@ -234,7 +228,7 @@ def _stage(T, lam, bonds, gate, chi, disc=None, shard=None):
         lam2 = lam[0][:0]
         disc2 = lam[0][:0, 0]
     if shard is not None:
-        sizes = [c * Bt for c in shares]
+        sizes = [(hi - lo) * Bt for lo, hi in shares]
         g = shard.rows_group
         Bi2, Bj2, lam2 = (all_gather_cat(x, g, sizes)
                           for x in (Bi2, Bj2, lam2))

@@ -13,6 +13,10 @@ order); the bond-theta kernel max|d|/max|twin| < 1e-5 in complex64
 (tests/test_pallas_kernels.py:22) and < 1e-12 in complex128.
 """
 
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -350,3 +354,67 @@ def test_dmrg_on_the_card_matches_exact(dev):
     vec = groundstate.ground_statevector(L, d, npart, 1.0, 2.5)
     ov = abs(np.vdot(mps.to_statevector(A[None])[0].cpu().numpy(), vec))
     assert abs(ov - 1.0) < 1e-8
+
+
+def _density_batch(B, n, dtype, dev, seed=0):
+    """Jittered density matrices m^H m with Schmidt-like row weights, as
+    the bond update makes them (chip_smoke.density_batch)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    m = torch.randn((B, n, n), generator=g, dtype=torch.complex128,
+                    device=dev)
+    m = m * torch.exp(-torch.arange(n, device=dev) / 16.0)[:, None]
+    return trunc._jitter(m.mH @ m).to(dtype)
+
+
+# a Vidal stage's even and odd bonds at chi 70, p 8; the MPS cell's lanes
+# at chi 25, p 5; a complex64 stage, which eigh solves in complex128
+@pytest.mark.parametrize("B, n, dtype", [
+    (10, 560, torch.complex128), (9, 560, torch.complex128),
+    (4, 125, torch.complex128), (10, 560, torch.complex64)])
+def test_eigh_fanout_matches_one_call(dev, B, n, dtype):
+    """ops.trunc.eigh in concurrent shares on the card: every matrix is
+    solved by the same syevd on the same input as in one call, so the
+    eigenvalues and eigenvectors are bitwise one call's, in its layout."""
+    rho = _density_batch(B, n, dtype, dev)
+    wide = rho.to(torch.complex128)
+    w_ref, v_ref = torch.linalg.eigh(wide)
+    trunc.reset_counts()
+    w, v = trunc._eigh_fanout(wide, min(B, trunc._FANOUT_WIDTH))
+    assert trunc.eigh_fanout == {n: B}
+    assert torch.equal(w, w_ref) and torch.equal(v, v_ref)
+    assert v.stride() == v_ref.stride()
+    trunc.reset_counts()
+    w1, v1 = trunc.eigh(rho)
+    width = trunc._fanout_width(wide)
+    assert trunc.eigh_calls == {n: 1}
+    assert trunc.eigh_fanout == ({n: B} if width > 1 else {})
+    assert torch.equal(w1, w_ref.to(w1.dtype))
+    assert torch.equal(v1, v_ref.to(v1.dtype))
+
+
+def test_eigh_fanout_raises_a_workers_error(dev):
+    """A share cuSOLVER cannot solve raises its error in the caller, with
+    the type one call raises."""
+    rho = _density_batch(6, 64, torch.complex128, dev, seed=1)
+    rho[4, 2, 2] = float("nan")
+    with pytest.raises(torch.linalg.LinAlgError) as one:
+        torch.linalg.eigh(rho)
+    with pytest.raises(torch.linalg.LinAlgError) as fanned:
+        trunc._eigh_fanout(rho, 3)
+    assert type(fanned.value) is type(one.value)
+
+
+def test_eigh_fanout_as_the_first_linalg_call_of_a_process(dev):
+    """PyTorch loads its CUDA linear-algebra library at a process's first
+    linalg call, and two threads making that call at once fail; the
+    fan-out makes it on the caller's thread before its workers start."""
+    code = ("import torch\n"
+            "from optimalcontrolmps_torch.ops import trunc\n"
+            "a = torch.randn(8, 96, 96, dtype=torch.complex128, "
+            "device='cuda')\n"
+            "trunc.eigh(a + a.mH)\n"
+            "assert trunc.eigh_fanout == {96: 8}, trunc.eigh_fanout\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", code], cwd=root,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]

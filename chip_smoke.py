@@ -566,13 +566,13 @@ def check_bond_theta() -> dict:
 def density_batch(B: int, n: int, dtype, seed: int = 0):
     """A batch (B, n, n) of jittered density matrices on the card, as the
     bond update makes them: m^H m for m with Schmidt-like row weights
-    exp(-k / 16), through `ops.trunc._jitter`."""
+    exp(-k / 16), through `ops.trunc.jitter`."""
     from optimalcontrolmps_torch.ops import trunc
     g = torch.Generator(device="cuda").manual_seed(seed)
     m = torch.randn((B, n, n), generator=g, dtype=torch.complex128,
                     device="cuda")
     m = m * torch.exp(-torch.arange(n, device="cuda") / 16.0)[:, None]
-    return trunc._jitter(m.mH @ m).to(dtype)
+    return trunc.jitter(m.mH @ m).to(dtype)
 
 
 class fanout_pool:
@@ -1074,7 +1074,7 @@ def vidal_step_reading(st, state, lanes: int, reps: int) -> dict:
     (their density matrices rebuilt from the stage inputs): eigh's share."""
     from optimalcontrolmps_torch import vidal
     from optimalcontrolmps_torch.ops.bond_theta import bond_theta
-    from optimalcontrolmps_torch.ops.trunc import _jitter
+    from optimalcontrolmps_torch.ops.trunc import jitter
 
     S = vidal_lanes(state, lanes)
     u = torch.full((lanes,), 10.0, dtype=state.lam.dtype,
@@ -1084,7 +1084,7 @@ def vidal_step_reading(st, state, lanes: int, reps: int) -> dict:
     for first in (0, 1):
         th = bond_theta(*stage_inputs(S, range(first, st.L - 1, 2)),
                         st.gate_fwd)
-        rho = _jitter(th.conj().transpose(-2, -1) @ th)
+        rho = jitter(th.conj().transpose(-2, -1) @ th)
         eigh_ms += cuda_ms(lambda: torch.linalg.eigh(rho), reps)
     out = {"lanes": lanes, "L": st.L, "chi": st.chi, "p": st.p,
            "dtype": str(state.B.dtype).split(".")[-1], "step_ms": step_ms,

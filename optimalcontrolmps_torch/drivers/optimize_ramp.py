@@ -58,6 +58,7 @@ from ..optimize import (cold_duals, minimize_interior_point,
                         minimize_lbfgs_batch, minimize_newton)
 from ..optimize.penalty import bound_penalty
 from ..precision import enforce_matmul_precision
+from ..streaming import infidelity_cost
 from ..vidal import VidalState
 from .common import build_problem, populations, print_banner, time_axis
 
@@ -115,7 +116,7 @@ def _scaled_cost(p, basis, obj_scaling):
 
 
 def _fidelity_cost(ov, u, gamma, dt):
-    return 0.5 * (1.0 - (ov * ov.conj()).real) + regularization(u, gamma, dt)
+    return infidelity_cost(ov) + regularization(u, gamma, dt)
 
 
 def _lane(a, b):

@@ -22,6 +22,7 @@ from .. import engine, groundstate, seeds, tebd
 from ..device import resolve_device
 from ..precision import enforce_matmul_precision
 from ..profiling import DeviceTimer
+from ..streaming import infidelity_cost
 from .common import J_HOP, U_FINAL, U_INITIAL, default_dtype, effective_chi
 
 __all__ = ["run", "main"]
@@ -45,7 +46,7 @@ def run(horizons=(1.0, 2.0, 3.0), batches=(1, 2, 4, 8), dtype=None,
 
     def cost_grad(us):
         g, (_, _, _, ov) = engine.gradient(st, psi_i, psi_f, us, 0.0)
-        return 0.5 * (1.0 - (ov * ov.conj()).real), g
+        return infidelity_cost(ov), g
 
     def hessians(us):
         return [engine.hessian(st, psi_i, psi_f, u, 0.0) for u in us]

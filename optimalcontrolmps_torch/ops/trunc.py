@@ -32,7 +32,8 @@ import torch
 from .. import profiling
 
 __all__ = ["split_truncate", "cholesky_orthonormalize", "eigh",
-           "householder_qr", "eigh_calls", "eigh_fanout", "reset_counts"]
+           "householder_qr", "jitter", "shares", "eigh_calls", "eigh_fanout",
+           "reset_counts"]
 
 # calls of `eigh` by matrix size (a call solves a batch of matrices)
 eigh_calls: dict = {}
@@ -58,7 +59,7 @@ def _h(x):
     return x.conj().transpose(-2, -1)
 
 
-def _jitter(rho):
+def jitter(rho):
     """rho + delta * mean(diag) * I for a batch of PSD matrices (..., m, m).
     Shifts the spectrum only, so the eigenvectors (the kept subspace) are
     unchanged; delta is 1e-12 in double precision, 1e-6 in single."""
@@ -212,11 +213,11 @@ def _fanout_width(rho) -> int:
     return min(batch, _FANOUT_WIDTH)
 
 
-def _shares(batch: int, width: int) -> list:
+def shares(batch: int, width: int) -> list:
     """[(lo, hi), ...]: `width` contiguous shares covering range(batch) in
     order, the first ones taking one more (10 over 4 -> 3/3/2/2; empty
-    ones when width > batch). Also the tensor-parallel Vidal stage's
-    shares of its bonds over ranks (`vidal._stage`)."""
+    ones when width > batch). Also the split of a Vidal stage's bonds over
+    the ranks of a mesh (`parallel.mesh.Mesh.bond_shares`)."""
     out, lo = [], 0
     for r in range(width):
         hi = lo + batch // width + (1 if r < batch % width else 0)
@@ -283,7 +284,7 @@ def _eigh_fanout(x, width: int):
         ready = torch.cuda.Event()
         ready.record(caller)
         futures = [_pool.submit(_solve_share, flat[lo:hi], ready)
-                   for lo, hi in _shares(flat.shape[0], width)]
+                   for lo, hi in shares(flat.shape[0], width)]
         wait(futures)
         parts = [f.result() for f in futures]
         for w, v, done in parts:
@@ -340,9 +341,9 @@ def split_truncate(theta, chi: int, keep_left: bool, method: str = "eigh",
         iters = _RSVD_ITERS
     if method in ("eigh", "rsvd"):
         if keep_left:
-            rho = _jitter(theta @ _h(theta))
+            rho = jitter(theta @ _h(theta))
         else:
-            rho = _jitter(_h(theta) @ theta)
+            rho = jitter(_h(theta) @ theta)
         if method == "eigh":
             _, u = _eigh_desc(rho, chi)
         else:

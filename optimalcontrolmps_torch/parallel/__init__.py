@@ -5,5 +5,6 @@ out as a ("batch", "rows") mesh, this rank's shards), `comm` (the explicit
 collectives), `multistart` (the sharded multistart L-BFGS and train step),
 `dryrun` (the four multi-device paths at tiny shapes) and `spawn` (a world
 of ranks on one host). Import the submodules; this package imports none of
-them, so the engines can use `mesh` and `comm` without a cycle.
+them. The engines import nothing from here: they take a `mesh.Mesh` as an
+argument and call its methods to split and combine their work.
 """

@@ -15,7 +15,10 @@ ranks compute on their own card; gloo ranks may all compute on one card
 (NCCL refuses two ranks on one GPU, and `init_device_mesh("cuda", ...)`
 would bind rank r to `cuda:{r % device_count}` under NCCL), or on the CPU.
 A sharding is this rank's slice of a leading axis (`batch_shard`,
-`row_shard`); the collectives are `comm.py`'s.
+`row_shard`); the collectives are `comm.py`'s. A `Mesh` also says how work
+splits along "rows" and how it is combined (`row_slice`, `bond_shares`,
+`rows_sum`, `rows_gather`): the engines call these on the mesh they are
+handed and import nothing of this package.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ import torch
 import torch.distributed as dist
 
 from ..device import resolve_device
+from ..ops.trunc import shares
+from .comm import all_gather_cat, all_reduce_sum
 
 __all__ = ["Mesh", "init_distributed", "compute_device", "mesh_shape",
            "make_mesh", "batch_shard", "row_shard"]
@@ -135,6 +140,28 @@ class Mesh:
     def row_rank(self) -> int:
         return self.rank % self.shape[1]
 
+    def row_slice(self, n: int) -> slice:
+        """This rank's rows of an axis of length n along "rows", cyclically:
+        row i goes to row rank i mod n_rows, which balances the Hessian's
+        triangular row loop."""
+        return slice(self.row_rank, n, self.n_rows)
+
+    def bond_shares(self, n: int) -> list:
+        """[(lo, hi), ...]: each row rank's contiguous share of n bonds, in
+        row-rank order (`ops.trunc.shares`: 10 -> 5/5, 9 -> 5/4); this
+        rank's is at `row_rank`."""
+        return shares(n, self.n_rows)
+
+    def rows_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of every row rank's `t` (`comm.all_reduce_sum`)."""
+        return all_reduce_sum(t, self.rows_group)
+
+    def rows_gather(self, t: torch.Tensor, sizes=None) -> torch.Tensor:
+        """Every row rank's `t` concatenated along axis 0 in row-rank
+        order; `sizes`: each rank's leading length when they differ
+        (`comm.all_gather_cat`)."""
+        return all_gather_cat(t, self.rows_group, sizes)
+
 
 def make_mesh(n: int | None = None, rows: int | None = None
               ) -> Mesh | None:
@@ -173,6 +200,5 @@ def batch_shard(mesh: Mesh, n: int) -> slice:
 
 def row_shard(mesh: Mesh, n: int) -> slice:
     """This rank's rows of a leading axis of length n along the "rows"
-    axis, cyclically: row i goes to row rank i mod n_rows, which balances
-    the Hessian's triangular row loop."""
-    return slice(mesh.row_rank, n, mesh.n_rows)
+    axis (`Mesh.row_slice`)."""
+    return mesh.row_slice(n)

@@ -16,6 +16,7 @@ import torch
 from .backends import engine_for
 from .control import ControlBasis
 from .engine import regularization
+from .streaming import infidelity_cost
 
 __all__ = ["OptimalControlProblem"]
 
@@ -74,8 +75,7 @@ class OptimalControlProblem:
                                              self.psi_target, u, self.gamma)
         g = (self.basis.convert_gradient(g_u) if self.basis is not None
              else g_u)
-        fid = (ov * ov.conj()).real
-        return (0.5 * (1.0 - fid)
+        return (infidelity_cost(ov)
                 + regularization(u, self.gamma, self.stepper.dt)), g
 
     def get_hessian(self, x):

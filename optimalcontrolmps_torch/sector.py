@@ -24,7 +24,7 @@ import torch
 from .engine import (regularization, regularization_grad,
                      regularization_hessian)
 from .groundstate import sector_basis, sector_ground_vector
-from .streaming import assemble_hessian
+from .streaming import adjoint_gradient, assemble_hessian, infidelity_cost
 from .ops.gates import j_gate
 from .device import resolve_device
 
@@ -279,8 +279,7 @@ def costate_rollout(st: SectorStepper, psi_target, u):
 def cost(st: SectorStepper, psi0, psi_target, u, gamma):
     psiT = rollout_final(st, psi0, u)
     ov = torch.sum(psi_target.conj() * psiT)
-    fid = (ov * ov.conj()).real
-    return 0.5 * (1.0 - fid) + regularization(u, gamma, st.dt)
+    return infidelity_cost(ov) + regularization(u, gamma, st.dt)
 
 
 def fidelities(st: SectorStepper, psi0, psi_target, u):
@@ -307,7 +306,8 @@ def gradient(st: SectorStepper, psi0, psi_target, u, gamma):
     xi_t = costate_rollout(st, psi_target, u)
     divT = _div_t(st, xi_t, psi_t)
     ov = torch.sum(psi_t[-1].conj() * psi_target)  # <psi(T)|psi_target>
-    g = st.dt * (divT * ov * 1j).real + regularization_grad(u, gamma, st.dt)
+    g = adjoint_gradient(divT, ov, st.dt) + regularization_grad(u, gamma,
+                                                                st.dt)
     return g, (psi_t, xi_t, divT, ov)
 
 
@@ -342,15 +342,15 @@ def gradient_lowmem(st: SectorStepper, psi0, psi_target, u, gamma):
     ov = torch.sum(hT.conj() * _phase_p(st, u[-1], 1, dtype, True)
                    * _pad(st, psi_target))
     ov = ov / torch.clamp(torch.linalg.vector_norm(hT), min=1e-16).to(dtype)
-    g = st.dt * (divT * ov * 1j).real + regularization_grad(u, gamma, st.dt)
+    g = adjoint_gradient(divT, ov, st.dt) + regularization_grad(u, gamma,
+                                                                st.dt)
     return g, (None, None, divT, ov)
 
 
 def cost_and_gradient(st: SectorStepper, psi0, psi_target, u, gamma):
     """Cost and adjoint gradient sharing one forward sweep."""
     g, (_, _, _, ov) = gradient(st, psi0, psi_target, u, gamma)
-    fid = (ov * ov.conj()).real
-    return 0.5 * (1.0 - fid) + regularization(u, gamma, st.dt), g
+    return infidelity_cost(ov) + regularization(u, gamma, st.dt), g
 
 
 def cost_and_gradient_exact(st: SectorStepper, psi0, psi_target, u, gamma):

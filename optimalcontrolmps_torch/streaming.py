@@ -5,6 +5,9 @@ Counterpart of optimalcontrolmps_tpu/streaming.py, generic over the engine
 (states are whatever `step_fwd` / `step_bwd` take; the MPS engine's are
 (B, L, chi, p, chi) batches):
 
+* `infidelity_cost` and `adjoint_gradient`: the two leaf formulas of
+  every engine, J = 0.5 (1 - |ov|^2) and g_i = dt Re(divT_i ov i), each
+  caller adding its regularization term.
 * `rollout_measure`: one state in flight, measure(psi_i) at every time
   (a tensor, or a tuple or dict of them).
 * `segmented_adjoint_gradient`: the analytic adjoint gradient with
@@ -30,7 +33,8 @@ import torch
 
 from .profiling import span
 
-__all__ = ["rollout_measure", "pick_segment", "segmented_adjoint_gradient",
+__all__ = ["infidelity_cost", "adjoint_gradient", "rollout_measure",
+           "pick_segment", "segmented_adjoint_gradient",
            "pick_row_block", "BlockHessian", "assemble_hessian",
            "row_steps", "count_row_steps", "reset_counts"]
 
@@ -47,6 +51,18 @@ def reset_counts() -> None:
 def count_row_steps(n: int) -> None:
     global row_steps
     row_steps += int(n)
+
+
+def infidelity_cost(ov):
+    """0.5 (1 - |ov|^2) of the overlap ov = <psi(T)|psi_target> (any
+    shape): the cost without its regularization."""
+    return 0.5 * (1.0 - (ov * ov.conj()).real)
+
+
+def adjoint_gradient(divT, ov, dt):
+    """g_i = dt Re(divT_i ov i): divT (..., N_t) against ov (...,); the
+    gradient without its regularization."""
+    return dt * (divT * ov[..., None] * 1j).real
 
 
 def rollout_measure(step_fwd, psi0, u, measure):
@@ -124,7 +140,7 @@ def segmented_adjoint_gradient(step_fwd, step_bwd, sandwich, overlap,
             xi = step_bwd(xi, u[..., i], u[..., i - 1])
             div[i - 1] = sandwich(xi, psis[k])
     divT = torch.stack(div, dim=-1)
-    g = dt * (divT * ov[..., None] * 1j).real
+    g = adjoint_gradient(divT, ov, dt)
     if reg_grad is not None:
         g = g + reg_grad(u)
     return g, (psiT, divT, ov)

@@ -33,8 +33,8 @@ from .ops.gates import j_gate
 from .ops.trunc import split_truncate
 from .sites import nn1_diag
 
-__all__ = ["TEBDStepper", "make_stepper", "exact_rank_bound", "tebd_step",
-           "steps", "reset_counts"]
+__all__ = ["TEBDStepper", "make_stepper", "exact_rank_bound", "phase",
+           "tebd_step", "steps", "reset_counts"]
 
 # Trotter steps taken by `tebd_step`, summed over the states of each batch
 steps = 0
@@ -165,7 +165,7 @@ def _brick_stage(T, bonds, gate, chi, method):
     return T
 
 
-def _phase(st: TEBDStepper, u, B, dtype):
+def phase(st: TEBDStepper, u, B, dtype):
     """(B, p) diagonal exp(-0.25j u dt n(n-1)); u scalar or (B,)."""
     u = torch.as_tensor(u, dtype=st.nn1.dtype, device=st.nn1.device)
     u = u.reshape(-1, 1).expand(B, 1)
@@ -185,8 +185,8 @@ def tebd_step(st: TEBDStepper, A, u_from, u_to, forward: bool = True):
     steps += B
     gate = st.gate_fwd if forward else st.gate_bwd
     sign = 1.0 if forward else -1.0
-    ph_from = _phase(st, sign * torch.as_tensor(u_from), B, A.dtype)
-    ph_to = _phase(st, sign * torch.as_tensor(u_to), B, A.dtype)
+    ph_from = phase(st, sign * torch.as_tensor(u_from), B, A.dtype)
+    ph_to = phase(st, sign * torch.as_tensor(u_to), B, A.dtype)
 
     A = A * ph_from[:, None, None, :, None]
     T = list(A.unbind(1))

@@ -23,15 +23,21 @@ sweep's.
 
 States: `VidalState(B, lam)`. A batch has B (Bt, L, chi, p, chi) and lam
 (Bt, L-1, chi) real; `B` alone is a plain MPS batch, so every `mps.py`
-contraction applies. As in `engine.py`, the derivative functions take ONE
-state psi0 / psi_target (B (L, chi, p, chi), lam (L-1, chi)) and a control
-u (N_t,) or a batch (B, N_t); the lanes of a batch step together. The exact
-Hessian propagates its row states through a snake-sweep twin of the stepper
-(rows lose the Vidal form once dH is applied).
+contraction applies.
+
+This module holds what is Vidal: the state and its conversions, the step
+(`_bond_update`, `_stage`, `vidal_step`), the exact Hessian's row channel
+(`_snake_twin`: rows lose the canonical form once dH is applied) and the
+entanglement diagnostics. The derivative functions (rollouts, cost,
+fidelities, gradients, Hessians) are `engine.Engine` bound to
+`vidal_step`: as in `engine.py` they take ONE state psi0 / psi_target (B
+(L, chi, p, chi), lam (L-1, chi)) and a control u (N_t,) or a batch (B,
+N_t), and the lanes of a batch step together.
 
 Tensor parallelism: `vidal_step(tp_mesh=)` and `rollout_final_tp` split
 each stage's bonds over the ranks of a mesh's "rows" axis and all-gather
-the updated sites (`parallel/`).
+the updated sites through the mesh's methods (`parallel.mesh.Mesh`); this
+module imports nothing of `parallel/`.
 
 Not ported: the matrix carriers (`to_matrix_carriers`, the three
 `_bond_update_matfree*`), the JAX package's route for a TPU without
@@ -41,6 +47,7 @@ factorizations.
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import NamedTuple
 
 import numpy as np
@@ -48,14 +55,10 @@ import torch
 
 from . import mps as mpslib
 from .device import resolve_device
-from .engine import (hessian as mps_hessian, regularization,
-                     regularization_grad, regularization_hessian)
+from .engine import Engine, cost_and_gradient_from, from_lanes, to_lanes
 from .ops.bond_theta import bond_theta
-from .ops.trunc import _jitter, _shares, eigh
-from .parallel.comm import all_gather_cat
-from .streaming import (BlockHessian, assemble_hessian, pick_row_block,
-                        rollout_measure, segmented_adjoint_gradient)
-from .tebd import TEBDStepper, _phase, tebd_step
+from .ops.trunc import eigh, jitter
+from .tebd import TEBDStepper, phase, tebd_step
 
 __all__ = [
     "VidalState", "schmidt_values", "to_mps", "from_mps", "vidal_step",
@@ -178,7 +181,7 @@ def _bond_update(Bi, Bj, lam_left, gate, chi):
     theta = th.reshape(n, chi, p, p * chi) \
         * lam_left.to(th.dtype)[:, :, None, None]     # rows are l*p + P
     m = theta.reshape(n, chi * p, p * chi)
-    rho = _jitter(m.conj().transpose(-2, -1) @ m)     # (n, p chi, p chi)
+    rho = jitter(m.conj().transpose(-2, -1) @ m)      # (n, p chi, p chi)
     w, v = eigh(rho)                                  # ascending
     w_all = w.clamp(min=0.0)
     w_top = w.flip(-1)[:, :chi]
@@ -204,17 +207,17 @@ def _stage(T, lam, bonds, gate, chi, disc=None, shard=None):
     dict that receives each bond's discarded weight (Bt,).
 
     shard: a `parallel.mesh.Mesh` (tensor parallelism): the bonds are split
-    into contiguous shares over its "rows" axis (`ops.trunc._shares`: 10
-    -> 5/5, 9 -> 5/4), each rank updates its share in one call, and (Bi',
-    Bj', lam'[, disc]) are all-gathered over the rows group, so every rank
-    holds the whole chain for the next stage."""
+    into contiguous shares over its "rows" axis (`Mesh.bond_shares`: 10 ->
+    5/5, 9 -> 5/4), each rank updates its share in one call, and (Bi', Bj',
+    lam'[, disc]) are all-gathered over the rows group (`Mesh.rows_gather`),
+    so every rank holds the whole chain for the next stage."""
     if not bonds:
         return
     Bt = T[0].shape[0]
     ones = torch.ones_like(lam[0])
     todo = bonds
     if shard is not None:
-        shares = _shares(len(bonds), shard.n_rows)
+        shares = shard.bond_shares(len(bonds))
         lo, hi = shares[shard.row_rank]
         todo = bonds[lo:hi]
     if todo:
@@ -229,11 +232,10 @@ def _stage(T, lam, bonds, gate, chi, disc=None, shard=None):
         disc2 = lam[0][:0, 0]
     if shard is not None:
         sizes = [(hi - lo) * Bt for lo, hi in shares]
-        g = shard.rows_group
-        Bi2, Bj2, lam2 = (all_gather_cat(x, g, sizes)
+        Bi2, Bj2, lam2 = (shard.rows_gather(x, sizes)
                           for x in (Bi2, Bj2, lam2))
         if disc is not None:
-            disc2 = all_gather_cat(disc2, g, sizes)
+            disc2 = shard.rows_gather(disc2, sizes)
     for k, b in enumerate(bonds):
         sl = slice(k * Bt, (k + 1) * Bt)
         T[b], T[b + 1], lam[b] = Bi2[sl], Bj2[sl], lam2[sl]
@@ -264,8 +266,8 @@ def vidal_step(st: TEBDStepper, state: VidalState, u_from, u_to,
     steps += Bt
     gate = st.gate_fwd if forward else st.gate_bwd
     sign = 1.0 if forward else -1.0
-    ph_from = _phase(st, sign * torch.as_tensor(u_from), Bt, B.dtype)
-    ph_to = _phase(st, sign * torch.as_tensor(u_to), Bt, B.dtype)
+    ph_from = phase(st, sign * torch.as_tensor(u_from), Bt, B.dtype)
+    ph_to = phase(st, sign * torch.as_tensor(u_to), Bt, B.dtype)
 
     T = list((B * ph_from[:, None, None, :, None]).unbind(1))
     lam = list(state.lam.unbind(1))
@@ -284,218 +286,7 @@ def vidal_step(st: TEBDStepper, state: VidalState, u_from, u_to,
 
 
 # ---------------------------------------------------------------------------
-# batching helpers
-# ---------------------------------------------------------------------------
-
-def _lanes(psi: VidalState, u):
-    """(one state, u (N,) or (B, N)) -> (a (B, ...) state batch, U (B, N),
-    whether u was a batch)."""
-    batched = u.dim() == 2
-    U = u if batched else u[None]
-    n = U.shape[0]
-    return VidalState(psi.B[None].expand(n, *psi.B.shape),
-                      psi.lam[None].expand(n, *psi.lam.shape)), U, batched
-
-
-def _out(x, batched):
-    if isinstance(x, VidalState):
-        return x if batched else VidalState(x.B[0], x.lam[0])
-    return x if batched else x[0]
-
-
-def _overlap_with(target: VidalState, A):
-    """<target|A_b> for one state `target` against an MPS batch A; (B,)."""
-    return mpslib.overlap(target.B[None].expand(A.shape[0],
-                                                *target.B.shape), A)
-
-
-def _fwd(st):
-    return lambda s, a, b: vidal_step(st, s, a, b, forward=True)
-
-
-def _bwd(st):
-    return lambda s, a, b: vidal_step(st, s, a, b, forward=False)
-
-
-# ---------------------------------------------------------------------------
-# rollouts
-# ---------------------------------------------------------------------------
-
-def _stack_time(states):
-    """A list of state batches -> one state with a time axis after the
-    lane axis: B (Bt, N, L, ...), lam (Bt, N, L-1, chi)."""
-    return VidalState(torch.stack([s.B for s in states], dim=1),
-                      torch.stack([s.lam for s in states], dim=1))
-
-
-def _rollout_lanes(st, S, U):
-    out = [S]
-    for i in range(U.shape[1] - 1):
-        S = vidal_step(st, S, U[:, i], U[:, i + 1], forward=True)
-        out.append(S)
-    return _stack_time(out)
-
-
-def _costate_lanes(st, X, U):
-    n = U.shape[1]
-    out = [None] * n
-    out[n - 1] = X
-    for i in range(n - 1, 0, -1):
-        X = vidal_step(st, X, U[:, i], U[:, i - 1], forward=False)
-        out[i - 1] = X
-    return _stack_time(out)
-
-
-def _final_lanes(st, S, U):
-    for i in range(U.shape[1] - 1):
-        S = vidal_step(st, S, U[:, i], U[:, i + 1], forward=True)
-    return S
-
-
-def rollout(st: TEBDStepper, psi0: VidalState, u):
-    """psi_t for all N_t times (calcPsi): a state with B (N_t, L, chi, p,
-    chi), or (B, N_t, ...) for a control batch."""
-    S, U, batched = _lanes(psi0, u)
-    return _out(_rollout_lanes(st, S, U), batched)
-
-
-def rollout_final(st: TEBDStepper, psi0: VidalState, u):
-    """psi(T) only."""
-    S, U, batched = _lanes(psi0, u)
-    return _out(_final_lanes(st, S, U), batched)
-
-
-def rollout_final_tp(st: TEBDStepper, psi0: VidalState, u, mesh):
-    """rollout_final with tensor-parallel bond updates: each stage's bonds
-    are split over the mesh's "rows" axis and all-gathered after it
-    (vidal_step's tp_mesh). Every rank of the rows group calls it with the
-    same state and controls and gets the same psi(T)."""
-    S, U, batched = _lanes(psi0, u)
-    for i in range(U.shape[1] - 1):
-        S = vidal_step(st, S, U[:, i], U[:, i + 1], forward=True,
-                       tp_mesh=mesh)
-    return _out(S, batched)
-
-
-def costate_rollout(st: TEBDStepper, psi_target: VidalState, u):
-    """xi_t backward from the target, ordered by time (calcXi)."""
-    X, U, batched = _lanes(psi_target, u)
-    return _out(_costate_lanes(st, X, U), batched)
-
-
-# ---------------------------------------------------------------------------
-# cost / fidelities
-# ---------------------------------------------------------------------------
-
-def cost(st: TEBDStepper, psi0: VidalState, psi_target: VidalState, u,
-         gamma):
-    """J(u) (calcCost) on Vidal states."""
-    S, U, batched = _lanes(psi0, u)
-    ov = _overlap_with(psi_target, _final_lanes(st, S, U).B)
-    fid = (ov * ov.conj()).real
-    return _out(0.5 * (1.0 - fid) + regularization(U, gamma, st.dt), batched)
-
-
-def fidelities(st: TEBDStepper, psi0: VidalState, psi_target: VidalState, u):
-    """|<psi_target|psi(t_i)>|^2 for every i."""
-    S, U, batched = _lanes(psi0, u)
-    traj = _rollout_lanes(st, S, U).B
-    B, n = U.shape
-    ov = _overlap_with(psi_target, traj.reshape(B * n, *traj.shape[2:]))
-    return _out((ov * ov.conj()).real.reshape(B, n), batched)
-
-
-def fidelities_streaming(st: TEBDStepper, psi0: VidalState,
-                         psi_target: VidalState, u):
-    """fidelities() with one state per lane in flight; same values."""
-    S, U, batched = _lanes(psi0, u)
-
-    def measure(s):
-        ov = _overlap_with(psi_target, s.B)
-        return (ov * ov.conj()).real
-
-    return _out(rollout_measure(_fwd(st), S, U, measure).T, batched)
-
-
-# ---------------------------------------------------------------------------
-# gradients
-# ---------------------------------------------------------------------------
-
-def _div_t(st: TEBDStepper, xi_B, psi_B):
-    """<xi_i| dH/du |psi_i> for (B, N_t, L, chi, p, chi) stacks; (B, N_t)."""
-    B, n = psi_B.shape[:2]
-    return mpslib.sandwich_site_sum(xi_B.reshape(B * n, *xi_B.shape[2:]),
-                                    psi_B.reshape(B * n, *psi_B.shape[2:]),
-                                    0.5 * st.nn1).reshape(B, n)
-
-
-def gradient(st: TEBDStepper, psi0: VidalState, psi_target: VidalState, u,
-             gamma):
-    """Adjoint gradient (calcAnalyticGradient) on Vidal states. Returns
-    (g, (psi_t, xi_t, divT, ov)), psi_t and xi_t VidalState stacks, ov =
-    <psi(T)|psi_target>."""
-    S, U, batched = _lanes(psi0, u)
-    X = _lanes(psi_target, u)[0]
-    psi_t = _rollout_lanes(st, S, U)
-    xi_t = _costate_lanes(st, X, U)
-    divT = _div_t(st, xi_t.B, psi_t.B)
-    ov = mpslib.overlap(psi_t.B[:, -1], X.B)
-    g = (st.dt * (divT * ov[:, None] * 1j).real
-         + regularization_grad(U, gamma, st.dt))
-    return _out(g, batched), tuple(_out(x, batched)
-                                   for x in (psi_t, xi_t, divT, ov))
-
-
-def gradient_lowmem(st: TEBDStepper, psi0: VidalState,
-                    psi_target: VidalState, u, gamma):
-    """BFGS-mode gradient: xi is never stored, divT computed during the one
-    backward sweep. Returns (g, (psi_t, None, divT, ov))."""
-    S, U, batched = _lanes(psi0, u)
-    X = _lanes(psi_target, u)[0]
-    half = 0.5 * st.nn1
-    psi_t = _rollout_lanes(st, S, U)
-    n = U.shape[1]
-    divT = torch.empty(U.shape, dtype=psi_t.B.dtype, device=psi_t.B.device)
-    divT[:, n - 1] = mpslib.sandwich_site_sum(X.B, psi_t.B[:, -1], half)
-    xi = X
-    for i in range(n - 1, 0, -1):
-        xi = vidal_step(st, xi, U[:, i], U[:, i - 1], forward=False)
-        divT[:, i - 1] = mpslib.sandwich_site_sum(xi.B, psi_t.B[:, i - 1],
-                                                  half)
-    ov = mpslib.overlap(psi_t.B[:, -1], X.B)
-    g = (st.dt * (divT * ov[:, None] * 1j).real
-         + regularization_grad(U, gamma, st.dt))
-    return _out(g, batched), (_out(psi_t, batched), None,
-                              _out(divT, batched), _out(ov, batched))
-
-
-def cost_and_gradient(st: TEBDStepper, psi0: VidalState,
-                      psi_target: VidalState, u, gamma):
-    """Cost and gradient sharing one forward sweep."""
-    g, (_, _, _, ov) = gradient(st, psi0, psi_target, u, gamma)
-    fid = (ov * ov.conj()).real
-    return 0.5 * (1.0 - fid) + regularization(u, gamma, st.dt), g
-
-
-def gradient_segmented(st: TEBDStepper, psi0: VidalState,
-                       psi_target: VidalState, u, gamma, seg=None):
-    """`gradient` with O(sqrt(N_t)) states in memory (two-level
-    checkpointing, streaming.segmented_adjoint_gradient): the gradient path
-    of reference-scale chains. Returns (g, (psiT, divT, ov))."""
-    S, U, batched = _lanes(psi0, u)
-    X = _lanes(psi_target, u)[0]
-    half = 0.5 * st.nn1
-    g, aux = segmented_adjoint_gradient(
-        _fwd(st), _bwd(st),
-        lambda x, s: mpslib.sandwich_site_sum(x.B, s.B, half),
-        lambda sT, tgt: mpslib.overlap(sT.B, tgt.B),
-        lambda uu: regularization_grad(uu, gamma, st.dt),
-        S, X, U, st.dt, seg=seg)
-    return _out(g, batched), tuple(_out(x, batched) for x in aux)
-
-
-# ---------------------------------------------------------------------------
-# exact Hessian: Vidal trajectories, snake-sweep rows
+# the derivative functions: engine.py's, over vidal_step
 # ---------------------------------------------------------------------------
 
 def _snake_twin(st: TEBDStepper) -> TEBDStepper:
@@ -505,48 +296,42 @@ def _snake_twin(st: TEBDStepper) -> TEBDStepper:
                                gauge_method="qr")
 
 
-def hessian(st: TEBDStepper, psi0: VidalState, psi_target: VidalState, u,
-            gamma, aux=None, row_shard=None):
-    """Exact dense Hessian for one control u (N_t,) (calcHessian_*): the
-    psi/xi trajectories and divT from the Vidal channel (`gradient`), the
-    dH|psi_i> row states stepped through the snake twin
-    (`engine.hessian`'s row batch). Without truncation the two channels
-    are the same operator; with it they differ at the truncation error,
-    the Hessian's own floor. aux: (psi_t, xi_t, divT, ov) from
-    `gradient`. row_shard: a mesh whose "rows" axis splits the row loop
-    (`engine.hessian`)."""
-    if aux is None:
-        _, aux = gradient(st, psi0, psi_target, u, gamma)
-    psi_t, xi_t, divT, ov = aux
-    return mps_hessian(_snake_twin(st), psi0.B, psi_target.B, u, gamma,
-                       aux=(psi_t.B, xi_t.B, divT, ov), row_shard=row_shard)
+# Vidal steps for psi and xi, snake-twin steps for the Hessian's rows (one
+# operator without truncation; with it they differ at the truncation error,
+# the Hessian's own floor). Both are looked up here at each call, so a
+# replaced `vidal_step` or `tebd_step` of this module is the step that runs.
+_VIDAL = Engine(
+    lambda st, s, a, b, forward: vidal_step(st, s, a, b, forward=forward),
+    mps=to_mps, row_stepper=_snake_twin,
+    row_step=lambda st, A, a, b, forward: tebd_step(st, A, a, b,
+                                                    forward=forward))
+rollout = _VIDAL.rollout
+rollout_final = _VIDAL.rollout_final
+costate_rollout = _VIDAL.costate_rollout
+cost = _VIDAL.cost
+fidelities = _VIDAL.fidelities
+fidelities_streaming = _VIDAL.fidelities_streaming
+gradient = _VIDAL.gradient
+gradient_lowmem = _VIDAL.gradient_lowmem
+gradient_segmented = _VIDAL.gradient_segmented
+hessian = _VIDAL.hessian
+hessian_streaming = _VIDAL.hessian_streaming
 
 
-def hessian_streaming(st: TEBDStepper, psi0: VidalState,
-                      psi_target: VidalState, u, gamma, aux=None,
-                      row_block: int = 64, progress=None):
-    """`hessian` with O(row_block) live states (streaming.BlockHessian):
-    Vidal steps for psi and xi, snake-twin steps for the rows; the same
-    values. aux: (psiT, divT, ov) from gradient_segmented, recomputed when
-    None. Built per call: there is nothing compiled to cache."""
-    n = u.shape[0]
-    if aux is None:
-        _, aux = gradient_segmented(st, psi0, psi_target, u, gamma)
-    _, divT, ov = aux
-    st_row = _snake_twin(st)
-    half = 0.5 * st.nn1
-    bh = BlockHessian(
-        n, pick_row_block(n - 1, row_block), fwd=_fwd(st), bwd=_bwd(st),
-        apply_dh=lambda A: mpslib.apply_site_sum_diag(
-            A, half, method=st_row.trunc_method),
-        row_step=lambda A, a, b: tebd_step(st_row, A, a, b, forward=True),
-        overlap=mpslib.overlap, get_b=to_mps)
-    one = _lanes(psi0, u)[0], _lanes(psi_target, u)[0]
-    ovm, row_norm, xih_norm, diag_ov = bh.ov_data(*one, u, progress=progress)
-    return assemble_hessian(ovm, row_norm, xih_norm, diag_ov, divT, ov,
-                            st.dt, regularization_hessian(
-                                n, gamma, st.dt, dtype=row_norm.dtype,
-                                device=row_norm.device))
+def cost_and_gradient(st: TEBDStepper, psi0: VidalState,
+                      psi_target: VidalState, u, gamma):
+    """Cost and gradient sharing one forward sweep (of this module's
+    `gradient`)."""
+    return cost_and_gradient_from(gradient, st, psi0, psi_target, u, gamma)
+
+
+def rollout_final_tp(st: TEBDStepper, psi0: VidalState, u, mesh):
+    """rollout_final with tensor-parallel bond updates: each stage's bonds
+    are split over the mesh's "rows" axis and all-gathered after it
+    (vidal_step's tp_mesh). Every rank of the rows group calls it with the
+    same state and controls and gets the same psi(T)."""
+    step = partial(vidal_step, tp_mesh=mesh)
+    return Engine(step).rollout_final(st, psi0, u)
 
 
 # ---------------------------------------------------------------------------
@@ -579,12 +364,12 @@ def rollout_diagnostics(st: TEBDStepper, psi0: VidalState, u,
       s2    (N_t, L-1)  per-bond Renyi-2 entropy
       disc  (N_t, L-1)  per-bond discarded weight of step i (row 0 zeros)
     (the reference's AnalyzeBondDim per-t per-bond records)."""
-    S, U, batched = _lanes(psi0, u)
+    S, U, batched = to_lanes(psi0, u)
 
     def measure(s, disc):
         out = {"s2": bond_renyi2(s), "disc": disc}
         if psi_target is not None:
-            ov = _overlap_with(psi_target, s.B)
+            ov = mpslib.overlap(psi_target.B.expand(s.B.shape), s.B)
             out["fid"] = (ov * ov.conj()).real
         return out
 
@@ -593,6 +378,6 @@ def rollout_diagnostics(st: TEBDStepper, psi0: VidalState, u,
         S, disc = vidal_step(st, S, U[:, i], U[:, i + 1], forward=True,
                              diag=True)
         recs.append(measure(S, disc))
-    diag = {k: _out(torch.stack([r[k] for r in recs], dim=1), batched)
+    diag = {k: from_lanes(torch.stack([r[k] for r in recs], dim=1), batched)
             for k in recs[0]}
-    return _out(S, batched), diag
+    return from_lanes(S, batched), diag

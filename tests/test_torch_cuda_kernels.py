@@ -363,7 +363,7 @@ def _density_batch(B, n, dtype, dev, seed=0):
     m = torch.randn((B, n, n), generator=g, dtype=torch.complex128,
                     device=dev)
     m = m * torch.exp(-torch.arange(n, device=dev) / 16.0)[:, None]
-    return trunc._jitter(m.mH @ m).to(dtype)
+    return trunc.jitter(m.mH @ m).to(dtype)
 
 
 # a Vidal stage's even and odd bonds at chi 70, p 8; the MPS cell's lanes

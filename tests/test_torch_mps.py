@@ -285,7 +285,7 @@ def test_jitter_and_cholesky_orthonormalize():
     rng = np.random.default_rng(5)
     B = rng.standard_normal((7, 4)) + 1j * rng.standard_normal((7, 4))
     rho = B @ B.conj().T
-    _close(trunc._jitter(torch.as_tensor(rho)[None])[0],
+    _close(trunc.jitter(torch.as_tensor(rho)[None])[0],
            jtrunc._jitter(jnp.asarray(rho)), 1e-12)
     q, Lc = trunc.cholesky_orthonormalize(torch.as_tensor(B)[None])
     jq, jL = jtrunc.cholesky_orthonormalize(jnp.asarray(B))

@@ -50,6 +50,23 @@ def test_importing_every_module_loads_no_jax():
                    timeout=120)
 
 
+def test_the_engines_load_no_multi_device_module():
+    """The objective layer depends only downward: importing the engines,
+    the steppers, the MPS algebra and the streaming layer loads no module
+    of `optimalcontrolmps_torch.parallel` (a mesh reaches them as an
+    argument)."""
+    mods = ["optimalcontrolmps_torch." + m
+            for m in ("engine", "vidal", "tebd", "mps", "streaming")]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.startswith('optimalcontrolmps_torch.parallel'))\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
+
+
 @pytest.mark.parametrize("module", [
     "optimalcontrolmps_torch/optimize/interior_point.py",
     "optimalcontrolmps_torch/optimize/nelder_mead.py",

@@ -1,5 +1,5 @@
 """The bond update's eigensolver fan-out (`ops/trunc.eigh` on the card) on
-the CPU: the share plan (`_fanout_width`, `_shares`), that the CPU path
+the CPU: the share plan (`_fanout_width`, `shares`), that the CPU path
 stays one `torch.linalg.eigh` call, and the pool path itself
 (`_eigh_fanout`) run on CPU tensors with stand-ins for the CUDA stream and
 event calls: its shares' results put back together are the one-call
@@ -49,7 +49,7 @@ def test_fanout_width_is_the_plan(shape, cuda, width):
 @pytest.mark.parametrize("batch", range(1, 13))
 def test_shares_cover_the_batch_in_order(batch):
     for width in range(1, batch + 1):
-        shares = trunc._shares(batch, width)
+        shares = trunc.shares(batch, width)
         assert len(shares) == width
         assert shares[0][0] == 0 and shares[-1][1] == batch
         assert all(a[1] == b[0] for a, b in zip(shares, shares[1:]))
@@ -119,7 +119,7 @@ def test_fanned_out_shares_gather_to_the_one_call_result(cpu_streams, shape,
 
 def test_gather_puts_the_shares_back_in_order():
     rho = _hermitian((7, 10, 10), torch.complex128, seed=2)
-    parts = [torch.linalg.eigh(rho[lo:hi]) for lo, hi in trunc._shares(7, 3)]
+    parts = [torch.linalg.eigh(rho[lo:hi]) for lo, hi in trunc.shares(7, 3)]
     w, v = trunc._gather(parts, 10)
     w_ref, v_ref = torch.linalg.eigh(rho)
     assert torch.equal(w, w_ref) and torch.equal(v, v_ref)

@@ -58,8 +58,8 @@ def main():
         Aj = A[:, 2].contiguous()
         theta_ms = ms(lambda: bt.bond_theta(Ai, Aj, st.gate_fwd))
         theta = bt.bond_theta(Ai, Aj, st.gate_fwd)
-        rho = trunc._jitter(theta @ trunc._h(theta))
-        rho_ms = ms(lambda: trunc._jitter(theta @ trunc._h(theta)))
+        rho = trunc.jitter(theta @ trunc._h(theta))
+        rho_ms = ms(lambda: trunc.jitter(theta @ trunc._h(theta)))
         eigh_ms = ms(lambda: torch.linalg.eigh(rho))
         m = theta[..., :st.chi].contiguous()
         qr_ms = ms(lambda: torch.linalg.qr(m, mode="reduced"))

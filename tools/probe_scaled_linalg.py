@@ -42,7 +42,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 from chip_smoke import cuda_ms  # noqa: E402
 from optimalcontrolmps_torch import dmrg, tebd, vidal  # noqa: E402
 from optimalcontrolmps_torch.ops.bond_theta import bond_theta  # noqa: E402
-from optimalcontrolmps_torch.ops.trunc import _jitter  # noqa: E402
+from optimalcontrolmps_torch.ops.trunc import jitter  # noqa: E402
 
 CHI, P = 128, 8
 N = CHI * P
@@ -88,7 +88,7 @@ def probe_eigh(rng):
     }
     for name, m_np in ms.items():
         m = torch.as_tensor(m_np, dtype=torch.complex64, device="cuda")
-        rho = _jitter(m.conj().transpose(-2, -1) @ m)
+        rho = jitter(m.conj().transpose(-2, -1) @ m)
         ref = torch.linalg.eigvalsh(rho.to(torch.complex128))
         for label, fn in (
                 ("eigh complex64", lambda: torch.linalg.eigh(rho)),
@@ -191,7 +191,7 @@ def probe_real():
     Ll = torch.stack([state.lam[b - 1] if b > 0 else ones for b in bonds])
     m = (th.reshape(len(bonds), CHI, P, P * CHI)
          * Ll.to(th.dtype)[:, :, None, None]).reshape(len(bonds), N, N)
-    rho = _jitter(m.conj().transpose(-2, -1) @ m)
+    rho = jitter(m.conj().transpose(-2, -1) @ m)
     for k, b in enumerate(bonds):
         r = rho[k]
         ok = {}

@@ -13,7 +13,8 @@ records per step the fidelity with the final ground state, the Renyi-2
 entropy of every bond (exp(S2), its effective rank, stands for the
 reference's adaptive link dimensions) and the weight each truncation
 discarded; at chunk ends the full Schmidt spectra. The adjoint gradient
-follows, with O(sqrt(N_t)) states (`vidal.gradient_segmented`). Files:
+follows (`vidal.gradient_segmented`: the trajectories kept when they fit
+on the device, else O(sqrt(N_t)) states). Files:
 
   TimeEvolBondDimT{T}maxM{M}.txt   t, u, F(t), gradient(t), exp(S2) per bond
   SchmidtDataT{T}maxM{M}.txt       chunk-end t, per-bond occupied rank,

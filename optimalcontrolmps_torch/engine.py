@@ -22,10 +22,12 @@ the whole batch.
     H    : exact row propagation (every row state stepped as one batch)
 
 `gradient_segmented` and `hessian_streaming` give the same gradient and
-Hessian with few states in flight (streaming.py), for the host-mode
-interior point. `hessian(row_shard=mesh)` splits the row loop over the
-ranks of a mesh's "rows" axis (the JAX package's row_sharding) through the
-mesh's own methods; this module imports nothing of `parallel/`.
+Hessian for the host-mode interior point (streaming.py): few row states in
+flight, psi and xi kept from the gradient when they fit and re-derived
+from checkpoints when not. `hessian(row_shard=mesh)` splits the row loop
+over the ranks of a mesh's "rows" axis (the JAX package's row_sharding)
+through the mesh's own methods; this module imports nothing of
+`parallel/`.
 
 The regularization helpers act on the last axis, so they serve a (B, N)
 batch as well as one (N,) control.
@@ -40,9 +42,10 @@ import torch
 from . import mps as mpslib
 from .device import resolve_device
 from .profiling import span
-from .streaming import (BlockHessian, adjoint_gradient, assemble_hessian,
-                        count_row_steps, infidelity_cost, pick_row_block,
-                        rollout_measure, segmented_adjoint_gradient)
+from .streaming import (BlockHessian, GradientAux, adjoint_gradient,
+                        assemble_hessian, count_row_steps, infidelity_cost,
+                        pick_row_block, rollout_measure,
+                        segmented_adjoint_gradient)
 from .tebd import TEBDStepper, tebd_step
 
 __all__ = [
@@ -121,6 +124,16 @@ def _trajectory(S, n):
 
 def _put(traj, i, S):
     _map(lambda t, x: t[:, i].copy_(x), traj, S)
+
+
+def _fill(states):
+    """A list of state batches, one per time, put in one `_trajectory`
+    buffer; each entry of the list is dropped once copied."""
+    traj = _trajectory(states[0], len(states))
+    for i in range(len(states)):
+        _put(traj, i, states[i])
+        states[i] = None
+    return traj
 
 
 def _overlap_with(target, A):
@@ -277,11 +290,14 @@ class Engine:
 
     def gradient_segmented(self, st: TEBDStepper, psi0, psi_target, u,
                            gamma, seg=None):
-        """`gradient` with O(sqrt(N_t)) states in memory: the forward sweep
-        keeps segment-start checkpoints and the backward sweep
-        re-propagates one segment at a time
-        (streaming.segmented_adjoint_gradient); the same values for one
-        more forward rollout. Returns (g, (psiT, divT, ov))."""
+        """`gradient` for the host-mode interior point
+        (streaming.segmented_adjoint_gradient): it keeps psi_t and xi_t
+        when they fit (`streaming.trajectories_fit`), else it holds
+        O(sqrt(N_t)) states, segment-start checkpoints from which the
+        backward sweep re-propagates one segment at a time (segments of
+        `seg` steps); the same values either way. Returns (g,
+        streaming.GradientAux (psiT, divT, ov, psi_t, xi_t)), psi_t and
+        xi_t in `rollout`'s layout, or None when not kept."""
         S, U, batched = to_lanes(psi0, u)
         X = to_lanes(psi_target, u)[0]
         half = 0.5 * st.nn1
@@ -293,8 +309,13 @@ class Engine:
             lambda s, t: mpslib.overlap(mps(s), mps(t)),
             lambda uu: regularization_grad(uu, gamma, st.dt),
             S, X, U, st.dt, seg=seg)
-        return from_lanes(g, batched), tuple(from_lanes(x, batched)
-                                             for x in aux)
+        if aux.psi_t is not None:
+            # one list at a time, so that three trajectories are the most
+            # held (streaming.trajectories_fit)
+            aux = aux._replace(psi_t=_fill(aux.psi_t))
+            aux = aux._replace(xi_t=_fill(aux.xi_t))
+        return from_lanes(g, batched), GradientAux(
+            *(x if x is None else from_lanes(x, batched) for x in aux))
 
     def hessian(self, st: TEBDStepper, psi0, psi_target, u, gamma, aux=None,
                 row_shard=None):
@@ -365,15 +386,19 @@ class Engine:
                           gamma, aux=None, row_block: int = 64,
                           progress=None):
         """`hessian` for one control u (N_t,) with O(row_block) row states
-        in flight (streaming.BlockHessian); the same values. aux: (psiT,
-        divT, ov) from gradient_segmented, recomputed when None.
+        in flight (streaming.BlockHessian); the same values. aux: the
+        GradientAux of gradient_segmented, recomputed when None; its kept
+        psi_t and xi_t, when it has them, are the Hessian's psi and xi,
+        else BlockHessian re-derives them from checkpoints.
         progress(c, s) is called after each block. The BlockHessian is
         built per call: it holds no compiled program, so there is nothing
         to cache."""
         n = u.shape[0]
         if aux is None:
             _, aux = self.gradient_segmented(st, psi0, psi_target, u, gamma)
-        _, divT, ov = aux
+        divT, ov = aux.divT, aux.ov
+        kept = (None if aux.psi_t is None
+                else (self.mps(aux.psi_t), self.mps(aux.xi_t)))
         st_row = self.row_stepper(st)
         half = 0.5 * st.nn1
         bh = BlockHessian(
@@ -387,7 +412,7 @@ class Engine:
             overlap=mpslib.overlap, get_b=self.mps)
         ovm, row_norm, xih_norm, diag_ov = bh.ov_data(
             to_lanes(psi0, u)[0], to_lanes(psi_target, u)[0], u,
-            progress=progress)
+            progress=progress, kept=kept)
         return assemble_hessian(ovm, row_norm, xih_norm, diag_ov, divT, ov,
                                 st.dt, regularization_hessian(
                                     n, gamma, st.dt, dtype=row_norm.dtype,

@@ -1,9 +1,13 @@
 """Parity of the port's streaming gradient and Hessian with the JAX package.
 
+Each gradient and Hessian test runs on both branches of the footprint rule
+(the `trajectory_branch` fixture): trajectories kept, or checkpointed and
+re-derived.
+
 * `engine.gradient_segmented` = the stacked `engine.gradient` = JAX's
   gradient (tests/test_streaming.py:60: L=4, d=3, chi=16, N_t=31; g and
   divT to 1e-11, the overlap to 1e-12), for the default and two given
-  segment lengths.
+  segment lengths; kept, its psi_t and xi_t are the stacked gradient's.
 * `engine.hessian_streaming` = the dense `engine.hessian` = JAX's dense
   Hessian at atol 1e-14 (tests/test_streaming_hessian.py:33: L=3, d=2,
   chi=4, T=0.2, 4 row blocks of R=5), with its progress hook called once
@@ -31,6 +35,7 @@ from optimalcontrolmps_tpu import tebd as jtebd
 from optimalcontrolmps_tpu import vidal as jvidal
 from optimalcontrolmps_torch import (engine, groundstate, seeds, streaming,
                                      tebd, vidal)
+from torch_branches import trajectory_branch  # noqa: F401 (a fixture)
 
 
 def test_pick_segment_and_row_block_match_jax():
@@ -70,32 +75,49 @@ def grad_problem(jax_states):
 
 
 @pytest.mark.parametrize("seg", [None, 3, 10])
-def test_gradient_segmented_matches_stacked_and_jax(grad_problem, seg):
+def test_gradient_segmented_matches_stacked_and_jax(grad_problem, seg,
+                                                    trajectory_branch):
     (st, psi_i, psi_f, u), (jg, jdiv, jov) = grad_problem
-    g_ref, (_, _, div_ref, ov_ref) = engine.gradient(st, psi_i, psi_f, u,
-                                                     1e-6)
-    g, (psiT, divT, ov) = engine.gradient_segmented(st, psi_i, psi_f, u,
-                                                    1e-6, seg=seg)
+    g_ref, (psi_ref, xi_ref, div_ref, ov_ref) = engine.gradient(
+        st, psi_i, psi_f, u, 1e-6)
+    streaming.reset_counts()
+    g, (psiT, divT, ov, psi_t, xi_t) = engine.gradient_segmented(
+        st, psi_i, psi_f, u, 1e-6, seg=seg)
     assert psiT.shape == psi_i.shape
     for got, want in ((g, g_ref.numpy()), (g, jg), (divT, div_ref.numpy()),
                       (divT, jdiv)):
         np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-11)
     assert abs(complex(ov) - complex(ov_ref)) < 1e-12
     assert abs(complex(ov) - jov) < 1e-12
+    n = u.shape[0] - 1
+    if trajectory_branch == "kept":
+        # the states of the stacked gradient's own sweeps
+        assert torch.equal(psi_t, psi_ref) and torch.equal(xi_t, xi_ref)
+        assert streaming.kept_trajectories == 1
+        assert streaming.replayed_steps == 0
+    else:
+        assert psi_t is None and xi_t is None
+        K = streaming.pick_segment(n, seg)
+        assert streaming.kept_trajectories == 0
+        assert streaming.replayed_steps == (n // K) * (K - 1)
 
 
-def test_gradient_segmented_batch_matches_single(grad_problem):
+def test_gradient_segmented_batch_matches_single(grad_problem,
+                                                 trajectory_branch):
     (st, psi_i, psi_f, u), _ = grad_problem
     U = torch.stack([u, u + 0.5 * torch.sin(torch.arange(u.shape[0]) * 0.3)])
-    gb, (_, divb, ovb) = engine.gradient_segmented(st, psi_i, psi_f, U, 1e-6)
+    gb, auxb = engine.gradient_segmented(st, psi_i, psi_f, U, 1e-6)
     for b in range(2):
-        g, (_, div, ov) = engine.gradient_segmented(st, psi_i, psi_f, U[b],
-                                                    1e-6)
+        g, aux = engine.gradient_segmented(st, psi_i, psi_f, U[b], 1e-6)
         np.testing.assert_allclose(gb[b].numpy(), g.numpy(), atol=1e-13)
-        assert abs(complex(ovb[b]) - complex(ov)) < 1e-13
+        assert abs(complex(auxb.ov[b]) - complex(aux.ov)) < 1e-13
+        if trajectory_branch == "kept":
+            assert auxb.psi_t.shape == (2, *aux.psi_t.shape)
+            np.testing.assert_allclose(auxb.xi_t[b].numpy(),
+                                       aux.xi_t.numpy(), atol=1e-13)
 
 
-def test_hessian_streaming_matches_dense_and_jax():
+def test_hessian_streaming_matches_dense_and_jax(trajectory_branch):
     L, d, npart, J, chi, T, dt = 3, 2, 3, 1.0, 4, 0.2, 0.01
     n = int(T / dt) + 1
     u = np.asarray(jseeds.linsigmoid_seed(2.5, 50.0, n,
@@ -123,6 +145,7 @@ def test_hessian_streaming_matches_dense_and_jax():
     np.testing.assert_allclose(H.numpy(), H_jax, atol=1e-14)
     # aux from gradient_segmented is reused as is
     _, aux = engine.gradient_segmented(st, psi_i, psi_f, ut, 1e-6)
+    assert (aux.psi_t is not None) == (trajectory_branch == "kept")
     H2 = engine.hessian_streaming(st, psi_i, psi_f, ut, 1e-6, aux=aux,
                                   row_block=20)
     np.testing.assert_allclose(H2.numpy(), H_dense, atol=1e-14)
@@ -168,17 +191,25 @@ def test_vidal_fidelities_streaming_matches_stacked_and_jax(vidal_problem):
     np.testing.assert_allclose(stream, jfid, rtol=0, atol=1e-12)
 
 
-def test_vidal_gradient_segmented_matches_stacked_and_jax(vidal_problem):
+def test_vidal_gradient_segmented_matches_stacked_and_jax(
+        vidal_problem, trajectory_branch):
     (st, psi_i, psi_f, u), (_, jg, _) = vidal_problem
-    g_ref, (_, _, div_ref, ov_ref) = vidal.gradient(st, psi_i, psi_f, u,
-                                                    1e-6)
-    g, (psiT, divT, ov) = vidal.gradient_segmented(st, psi_i, psi_f, u,
-                                                   1e-6, seg=5)
+    g_ref, (psi_ref, xi_ref, div_ref, ov_ref) = vidal.gradient(
+        st, psi_i, psi_f, u, 1e-6)
+    g, (psiT, divT, ov, psi_t, xi_t) = vidal.gradient_segmented(
+        st, psi_i, psi_f, u, 1e-6, seg=5)
     assert isinstance(psiT, vidal.VidalState)
     assert psiT.B.shape == psi_i.B.shape
     for got, want in ((g, g_ref.numpy()), (g, jg), (divT, div_ref.numpy())):
         np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-11)
     assert abs(complex(ov) - complex(ov_ref)) < 1e-12
+    if trajectory_branch == "kept":
+        for got, want in ((psi_t, psi_ref), (xi_t, xi_ref)):
+            assert isinstance(got, vidal.VidalState)
+            assert torch.equal(got.B, want.B)
+            assert torch.equal(got.lam, want.lam)
+    else:
+        assert psi_t is None and xi_t is None
 
 
 def test_vidal_rollout_diagnostics_matches_jax(vidal_problem):
@@ -213,7 +244,7 @@ def test_vidal_rollout_diagnostics_matches_jax(vidal_problem):
                                atol=1e-12)
 
 
-def test_vidal_hessian_streaming_matches_dense_and_jax():
+def test_vidal_hessian_streaming_matches_dense_and_jax(trajectory_branch):
     L, d, npart, J, chi, T, dt = 3, 2, 3, 1.0, 4, 0.2, 0.01
     n = int(T / dt) + 1
     u = np.asarray(jseeds.linsigmoid_seed(2.5, 50.0, n,

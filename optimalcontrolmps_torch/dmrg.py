@@ -27,6 +27,12 @@ search's converged chi=128 energy (its environment bases are isometries only
 to ~1e-7, against MPO terms that reach 2 lam npart^2 = 1600), while the
 complex128 sweeps fell monotonically to 5e-13, at 13% more time
 (tools/probe_scaled_linalg.py --real, --real128).
+
+Spans (`profiling.span`): `dmrg.search` around one `dmrg_ground_state`,
+`dmrg.lanczos` and `dmrg.split` around each bond's two-site solve and its
+SVD split. Counters (`reset_counts`): `sweeps`, `matvecs` (H_eff
+applications) and `host_syncs` (one per Lanczos solve, for its
+tridiagonal eigenproblem; at the fixed Krylov depth, matvecs / krylov).
 """
 
 from __future__ import annotations
@@ -37,12 +43,27 @@ import torch
 from . import mps as mpslib
 from .device import resolve_device
 from .ops.trunc import split_truncate
+from .profiling import span
 from .sites import op
 
 __all__ = ["bh_mpo", "ramp_schedule", "dmrg_ground_state",
-           "initialize_state_dmrg"]
+           "initialize_state_dmrg", "sweeps", "matvecs", "host_syncs",
+           "reset_counts"]
 
 SVD_DRIVER = "gesvd"
+
+# full sweeps (L->R then R->L) made by `dmrg_ground_state`
+sweeps = 0
+# H_eff applications of the two-site Lanczos solves
+matvecs = 0
+# host waits for the Lanczos coefficients, one per two-site solve (so
+# matvecs / krylov: the depth is fixed)
+host_syncs = 0
+
+
+def reset_counts() -> None:
+    global sweeps, matvecs, host_syncs
+    sweeps = matvecs = host_syncs = 0
 
 
 def bh_mpo(L: int, d: int, J: float, U: float, dtype=np.complex128,
@@ -101,6 +122,7 @@ def _lanczos_ground(matvec, v0, k: int = 25):
     reorthogonalization. The Krylov coefficients stay on the device (the
     b > 1e-12 guard is a torch.where); the k x k tridiagonal eigenproblem
     is solved on the host in float64, the one sync of the call."""
+    global matvecs, host_syncs
     shape = v0.shape
     v0 = v0.reshape(-1)
     v0 = v0 / torch.linalg.vector_norm(v0)
@@ -124,6 +146,8 @@ def _lanczos_ground(matvec, v0, k: int = 25):
                                                    torch.ones_like(b)), w)
         alpha[i] = a
         beta[i] = b
+    matvecs += k
+    host_syncs += 1
     al = alpha.double().cpu().numpy()
     be = beta.double().cpu().numpy()
     Tm = np.diag(al) + np.diag(be[:k - 1], 1) + np.diag(be[:k - 1], -1)
@@ -146,6 +170,8 @@ def _sweep(A, W, chi: int, krylov: int):
     """One full DMRG sweep (L->R then R->L) of A (L, chi, p, chi) at fixed
     chi with the MPO W (of A's dtype). Returns (A', energy of the last bond
     update)."""
+    global sweeps
+    sweeps += 1
     L, _, p, _ = A.shape
     dtype, dev = A.dtype, A.device
     wdim = W.shape[0]
@@ -185,30 +211,35 @@ def _sweep(A, W, chi: int, krylov: int):
     Lenvs = [boundary(3)]              # vL = e_3
     energy = None
     for b in range(L - 1):             # left to right
-        energy, theta = _lanczos_ground(
-            lambda x: _heff_matvec(Lenvs[b], W, Renvs[b + 1], x),
-            two_site(b), k=krylov)
-        lft, rgt = split_truncate(theta.reshape(1, chi * p, p * chi), chi,
-                                  keep_left=True, method="svd",
-                                  svd_driver=SVD_DRIVER)
+        with span("dmrg.lanczos"):
+            energy, theta = _lanczos_ground(
+                lambda x: _heff_matvec(Lenvs[b], W, Renvs[b + 1], x),
+                two_site(b), k=krylov)
+        with span("dmrg.split"):
+            lft, rgt = split_truncate(theta.reshape(1, chi * p, p * chi),
+                                      chi, keep_left=True, method="svd",
+                                      svd_driver=SVD_DRIVER)
         T[b] = lft.reshape(chi, p, chi)
         T[b + 1] = normalized(rgt.reshape(chi, p, chi))
         Lenvs.append(push_left_env(Lenvs[b], T[b]))
 
     Renv = boundary(0)
     for b in range(L - 2, -1, -1):     # right to left
-        energy, theta = _lanczos_ground(
-            lambda x: _heff_matvec(Lenvs[b], W, Renv, x), two_site(b),
-            k=krylov)
-        lft, rgt = split_truncate(theta.reshape(1, chi * p, p * chi), chi,
-                                  keep_left=False, method="svd",
-                                  svd_driver=SVD_DRIVER)
+        with span("dmrg.lanczos"):
+            energy, theta = _lanczos_ground(
+                lambda x: _heff_matvec(Lenvs[b], W, Renv, x), two_site(b),
+                k=krylov)
+        with span("dmrg.split"):
+            lft, rgt = split_truncate(theta.reshape(1, chi * p, p * chi),
+                                      chi, keep_left=False, method="svd",
+                                      svd_driver=SVD_DRIVER)
         T[b + 1] = rgt.reshape(chi, p, chi)
         T[b] = normalized(lft.reshape(chi, p, chi))
         Renv = push_right_env(Renv, T[b + 1])
     return torch.stack(T), energy
 
 
+@span("dmrg.search")
 def dmrg_ground_state(L: int, d: int, npart: int, J: float, U: float,
                       chi: int, n_sweeps: int | None = None,
                       krylov: int = 25, dtype=torch.complex128,

@@ -21,7 +21,12 @@ and ...Sampled files of its matrix carriers are not written; the result's
 Without an InputFile: the reference's N=20, Npart=20, d=7, tstep 5e-3,
 T=3, maxM 1000, on the card. The boundary state comes from
 `prep_states.ensure_boundary_states` at chi_prep (cached in state_cache,
-default .state_cache/L{L}d{d}n{npart}chi{cp}.npz).
+default .state_cache/L{L}d{d}n{npart}chi{cp}.npz). The result holds the
+per-step rows, chi and the path of the cache that holds both boundary
+states (`psi_i`, the quench's start, and `psi_f`).
+
+Span (`profiling.span`): `quench.rollout` around the propagation and its
+measurements.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import torch
 
 from .. import io, mps as mpslib, observables, tebd, vidal
 from ..precision import enforce_matmul_precision
+from ..profiling import span
 from ..sites import op
 from ..streaming import pick_segment, rollout_measure
 from .common import (J_HOP, U_FINAL, U_INITIAL, analysis_setup,
@@ -90,10 +96,11 @@ def run(cfg_path=None, ramp: str = "exp", out_prefix: str = "",
                 "rdd": rdd[0]}
 
     t0 = time.time()
-    res = rollout_measure(
-        lambda s, a, b: vidal.vidal_step(st, s, a, b, forward=True),
-        vidal.VidalState(vi.B[None], vi.lam[None]), u, measure)
-    res = {k: v.cpu().numpy() for k, v in res.items()}
+    with span("quench.rollout"):
+        res = rollout_measure(
+            lambda s, a, b: vidal.vidal_step(st, s, a, b, forward=True),
+            vidal.VidalState(vi.B[None], vi.lam[None]), u, measure)
+        res = {k: v.cpu().numpy() for k, v in res.items()}
     wall = time.time() - t0
 
     io.write_rowmat(out_prefix + f"EntanglementEntropies_{tag}.txt",
@@ -111,7 +118,7 @@ def run(cfg_path=None, ramp: str = "exp", out_prefix: str = "",
           f"trunc=eigh, wall {wall:.1f}s)")
     return {"entropies": res["S"], "sp": res["sp"], "dd": res["dd"],
             "rdd": res["rdd"], "vn_sampled": vn_sampled, "wall": wall,
-            "chi": chi}
+            "chi": chi, "state_cache": cache}
 
 
 def main(argv=None):

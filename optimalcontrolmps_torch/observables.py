@@ -12,6 +12,9 @@ Operator order as in the reference's correlationFunction:
 with Op2 acting first when i == j, so ("Adag", i, "A", i) gives <n_i> and
 the single-particle density matrix is Hermitian with the occupations on
 its diagonal.
+
+Span (`profiling.span`): `observables.window` around one
+`window_correlations`.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 
 from .mps import (_env_step, _left_envs, _right_envs, entanglement_entropies,
                   expectation_values)
+from .profiling import span
 
 __all__ = [
     "correlation_function", "correlation_matrix", "window_correlations",
@@ -86,6 +90,7 @@ def correlation_matrix(psi, op1, op2):
     return C
 
 
+@span("observables.window")
 def window_correlations(psi, op_a, op_adag, op_n, start: int, end: int):
     """The correlators the reference's AnalyzeQuench records for the window
     of sites start..end, from ONE pass of environments (not one rebuild

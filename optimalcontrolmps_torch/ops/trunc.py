@@ -33,17 +33,21 @@ from .. import profiling
 
 __all__ = ["split_truncate", "cholesky_orthonormalize", "eigh",
            "householder_qr", "jitter", "shares", "eigh_calls", "eigh_fanout",
-           "reset_counts"]
+           "svd_calls", "reset_counts"]
 
 # calls of `eigh` by matrix size (a call solves a batch of matrices)
 eigh_calls: dict = {}
 # matrices of each size that `eigh` solved in concurrent shares on the card
 eigh_fanout: dict = {}
+# calls of `split_truncate`'s "svd" method by matrix shape (m, n) (a call
+# factors a batch of matrices)
+svd_calls: dict = {}
 
 
 def reset_counts() -> None:
     eigh_calls.clear()
     eigh_fanout.clear()
+    svd_calls.clear()
 
 _RSVD_ITERS = 3
 _RSVD_OVERSAMPLE = 8
@@ -369,6 +373,8 @@ def split_truncate(theta, chi: int, keep_left: bool, method: str = "eigh",
         return left * keep[..., None, :], (_h(v) * keep[..., :, None]
                                            ).resolve_conj()
     if method == "svd":
+        shape = tuple(theta.shape[-2:])
+        svd_calls[shape] = svd_calls.get(shape, 0) + 1
         u, s, vh = torch.linalg.svd(
             theta, full_matrices=False,
             driver=svd_driver if theta.is_cuda else None)
